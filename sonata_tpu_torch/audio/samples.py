@@ -1,0 +1,248 @@
+"""PCM buffer type and DSP primitives (host-side, numpy).
+
+Analogue of the reference's ``audio-ops`` crate
+(``crates/audio/ops/src/samples.rs``), kept as its own copy in the PyTorch
+port.  Everything here is small, pure, and vectorized — these run on the
+host between device launches, so numpy (not torch) is the right tool.
+
+Behavioral parity notes (reference ``samples.rs`` line refs):
+- ``to_i16``: peak-normalizing float→i16 conversion (``:51-75``).
+- ``as_wave_bytes``: little-endian i16 bytes (``:76-78``).
+- ``overlap_with``: sine-ramp overlap-add of two buffers (``:102-118``).
+- ``fade_in``/``fade_out``: quarter-sine-wave ramps (``:119-143``).
+- ``crossfade``: both-end taper applied per streaming chunk (``:144-157``).
+- ``lowpass_filter``/``highpass_filter``: *amplitude-threshold* filters, not
+  spectral ones — the reference's are naive amplitude gates (``:158-171``)
+  and the streaming pipeline depends on that behavior, so we keep it (a real
+  spectral filter lives in :mod:`sonata_tpu.ops.signal`).
+- ``real_time_factor`` = inference_ms / audio duration_ms (``:253-260``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import numpy as np
+
+from ..core import AudioInfo
+from .window import get_hann_window
+
+ArrayLike = Union[np.ndarray, list, tuple]
+
+_EPS = 1e-9
+# Minimum peak used by the normalizing i16 conversion; prevents silence from
+# being blown up to full scale (same guard the Piper ecosystem uses).
+_MIN_PEAK = 0.01
+_I16_MAX = 32767.0
+
+
+def _as_f32(x: ArrayLike) -> np.ndarray:
+    a = np.asarray(x, dtype=np.float32)
+    if a.ndim != 1:
+        a = a.reshape(-1)
+    return a
+
+
+class AudioSamples:
+    """A mono float32 PCM buffer with chainable DSP ops.
+
+    Mirrors ``AudioSamples(Vec<f32>)`` (reference ``samples.rs:18``).
+    """
+
+    __slots__ = ("data", "peak_normalize")
+
+    def __init__(self, data: ArrayLike = ()):
+        self.data = _as_f32(data)
+        # i16-conversion gain mode: True = per-buffer peak normalization
+        # (reference parity); False = fixed unit-range gain (seam-free
+        # streams, see AudioOutputConfig.stream_normalization)
+        self.peak_normalize = True
+
+    # -- basic container ----------------------------------------------------
+    def __len__(self) -> int:
+        return int(self.data.shape[0])
+
+    def __iter__(self):
+        return iter(self.data)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, AudioSamples):
+            return NotImplemented
+        return np.array_equal(self.data, other.data)
+
+    def copy(self) -> "AudioSamples":
+        out = AudioSamples(self.data.copy())
+        out.peak_normalize = self.peak_normalize
+        return out
+
+    # -- conversions (samples.rs:51-78) -------------------------------------
+    def to_i16(self, normalize: Optional[bool] = None) -> np.ndarray:
+        """Conversion to int16 (``samples.rs:51-75``).
+
+        ``normalize=True`` (the reference behavior) scales so the loudest
+        sample hits full scale, with a floor on the measured peak so
+        near-silence is not amplified into noise.  ``normalize=False``
+        scales by the fixed unit range instead (the model's tanh output is
+        already in [-1, 1]) — chunk-invariant, so consecutive streamed
+        chunks share one gain and cannot seam (see
+        ``AudioOutputConfig.stream_normalization``).  ``None`` defers to
+        the instance's ``peak_normalize`` attribute (default True).
+        """
+        if len(self) == 0:
+            return np.zeros(0, dtype=np.int16)
+        if normalize is None:
+            normalize = getattr(self, "peak_normalize", True)
+        if normalize:
+            peak = float(np.max(np.abs(self.data)))
+            scale = _I16_MAX / max(peak, _MIN_PEAK)
+        else:
+            scale = _I16_MAX
+        scaled = np.clip(self.data * scale, -32768.0, 32767.0)
+        return scaled.astype(np.int16)
+
+    def as_wave_bytes(self, normalize: Optional[bool] = None) -> bytes:
+        """Raw little-endian 16-bit PCM bytes (``samples.rs:76-78``)."""
+        return self.to_i16(normalize).astype("<i2").tobytes()
+
+    # -- combination ---------------------------------------------------------
+    def merge(self, other: "AudioSamples") -> "AudioSamples":
+        """Concatenate (``samples.rs:79``)."""
+        self.data = np.concatenate([self.data, other.data])
+        return self
+
+    def overlap_with(self, other: "AudioSamples", overlap: int) -> "AudioSamples":
+        """Sine-ramp overlap-add: blend ``other`` onto our tail
+        (``samples.rs:102-118``).
+
+        The last ``overlap`` samples of ``self`` ramp down on a quarter-sine
+        while the first ``overlap`` samples of ``other`` ramp up, and the two
+        regions are summed.
+        """
+        overlap = int(min(overlap, len(self), len(other)))
+        if overlap <= 0:
+            return self.merge(other)
+        # half-sample offset keeps the ramp strictly inside (0, 1) so an
+        # overlap of 1 still blends instead of dropping one side entirely
+        t = (np.arange(overlap, dtype=np.float32) + 0.5) / max(overlap, 1)
+        up = np.sin(t * (math.pi / 2)).astype(np.float32)
+        down = np.cos(t * (math.pi / 2)).astype(np.float32)
+        head, tail = self.data[:-overlap], self.data[-overlap:]
+        o_head, o_tail = other.data[:overlap], other.data[overlap:]
+        blended = tail * down + o_head * up
+        self.data = np.concatenate([head, blended, o_tail])
+        return self
+
+    # -- gain shaping (samples.rs:82-157) ------------------------------------
+    def normalize(self, peak: float = 1.0) -> "AudioSamples":
+        """Scale so the absolute peak equals ``peak`` (``samples.rs:82``)."""
+        cur = float(np.max(np.abs(self.data))) if len(self) else 0.0
+        if cur > _EPS:
+            self.data = self.data * np.float32(peak / cur)
+        return self
+
+    def apply_hanning_window(self) -> "AudioSamples":
+        """Multiply by a Hann window of the buffer length (``samples.rs:95``)."""
+        if len(self):
+            self.data = self.data * get_hann_window(len(self))
+        return self
+
+    def fade_in(self, n: int) -> "AudioSamples":
+        """Quarter-sine fade-in over the first ``n`` samples
+        (``samples.rs:119-130``)."""
+        n = int(min(n, len(self)))
+        if n > 0:
+            t = np.arange(n, dtype=np.float32) / n
+            self.data = self.data.copy()
+            self.data[:n] *= np.sin(t * (math.pi / 2)).astype(np.float32)
+        return self
+
+    def fade_out(self, n: int) -> "AudioSamples":
+        """Quarter-sine fade-out over the last ``n`` samples
+        (``samples.rs:131-143``)."""
+        n = int(min(n, len(self)))
+        if n > 0:
+            t = np.arange(n, dtype=np.float32) / n
+            self.data = self.data.copy()
+            self.data[-n:] *= np.cos(t * (math.pi / 2)).astype(np.float32)
+        return self
+
+    def crossfade(self, n: int) -> "AudioSamples":
+        """Taper both ends: fade-in + fade-out of ``n`` samples
+        (``samples.rs:144-157``).  Applied to each streaming chunk's edges
+        (42 samples in the reference decoder, ``piper/src/lib.rs:838``)."""
+        return self.fade_in(n).fade_out(n)
+
+    # -- naive amplitude filters (samples.rs:158-171) ------------------------
+    def lowpass_filter(self, threshold: float) -> "AudioSamples":
+        """Clamp samples whose magnitude exceeds ``threshold``
+        (amplitude gate — parity with ``samples.rs:158-164``)."""
+        self.data = np.clip(self.data, -threshold, threshold)
+        return self
+
+    def highpass_filter(self, threshold: float) -> "AudioSamples":
+        """Zero samples whose magnitude is below ``threshold``
+        (amplitude gate — parity with ``samples.rs:165-171``)."""
+        self.data = np.where(np.abs(self.data) >= threshold, self.data, 0.0).astype(
+            np.float32
+        )
+        return self
+
+    def strip_silence(self, threshold: float) -> "AudioSamples":
+        """Trim leading/trailing samples quieter than ``threshold``
+        (``samples.rs:172-181``)."""
+        loud = np.flatnonzero(np.abs(self.data) >= threshold)
+        if loud.size == 0:
+            self.data = np.zeros(0, dtype=np.float32)
+        else:
+            self.data = self.data[loud[0] : loud[-1] + 1]
+        return self
+
+    def to_decibel(self) -> np.ndarray:
+        """Per-sample amplitude in dBFS (``samples.rs:182-184``)."""
+        return (20.0 * np.log10(np.maximum(np.abs(self.data), _EPS))).astype(
+            np.float32
+        )
+
+
+@dataclass
+class Audio:
+    """A synthesized utterance: samples + stream info + timing.
+
+    Mirrors ``Audio{samples, info, inference_ms}`` (``samples.rs:210-214``).
+    ``real_time_factor`` — inference wall-time over audio duration — is the
+    framework's primary performance metric (``samples.rs:253-260``).
+    """
+
+    samples: AudioSamples
+    info: AudioInfo
+    inference_ms: float = 0.0
+
+    @property
+    def sample_rate(self) -> int:
+        return self.info.sample_rate
+
+    def duration_ms(self) -> float:
+        """Audio length in milliseconds (``samples.rs:245``)."""
+        if self.info.sample_rate <= 0:
+            return 0.0
+        return len(self.samples) / self.info.sample_rate * 1000.0
+
+    def real_time_factor(self) -> float:
+        """inference_ms / duration_ms (``samples.rs:253-260``)."""
+        dur = self.duration_ms()
+        if dur <= 0:
+            return 0.0
+        return self.inference_ms / dur
+
+    def as_wave_bytes(self) -> bytes:
+        return self.samples.as_wave_bytes()
+
+    def save_to_file(self, path) -> None:
+        """Write a 16-bit PCM WAV file (``samples.rs:262``)."""
+        from .wave_io import write_wave_samples_to_file
+
+        write_wave_samples_to_file(
+            path, self.samples.to_i16(), self.info.sample_rate, self.info.num_channels
+        )
