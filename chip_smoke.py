@@ -3,8 +3,7 @@
 
 Run from the repository root on a host with one NVIDIA GPU:
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; nothing is caught):
@@ -14,21 +13,25 @@ exits non-zero; nothing is caught):
               first use).
 2. main     — the port's main path at Piper medium width with random
               weights, through ``SpeechSynthesizer``: a 3-sentence text to a
-              WAV file, then one streamed sentence.  Every kernel's launch
+              WAV file, then one streamed sentence.  The layers a random
+              voice starts at zero (flow ``post``, duration-flow ``proj``)
+              get seeded random values first, so the WaveNet gate's output
+              reaches the audio.  Every kernel's launch
               count is set to 0 just before and read just after; the gate
               must have launched 16 times per acoustics call and the
               epilogue once per window decode.
 3. parity   — the same weights and noise through the port on the CPU and on
               the GPU (the GPU acoustics fed the CPU's durations): the
-              waveforms must agree within 1e-3 (cuDNN and the CPU order
-              float32 sums differently).
+              waveforms must agree within 1e-3 of the CPU waveform's peak
+              (cuDNN and the CPU order float32 sums differently).
 4. profile  — the same file and stream under ``torch.profiler``: wall time,
               device-busy time and idle share, kernel launches, and the
               kernels that take the most device time.
 5. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes and at fixed check shapes, each timed
               (median of 50 launches with CUDA events, and the kernel's
-              own device time from the profiler).
+              own device time from the profiler); the ``kernels`` line
+              times each at the main path's most frequent shape.
 6. the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -37,7 +40,6 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import statistics
@@ -144,21 +146,33 @@ def profile_run(torch, fn) -> dict:
                     for name, (n, us) in top]}
 
 
-def gate_inputs(torch, shape, channels_last: bool, with_g: bool, seed: int):
+def fill_zero_init(torch, model, seed: int, std: float = 0.02) -> None:
+    """Seeded random values in the layers a random voice starts at zero,
+    as the reference's ``init_vits`` does: each flow layer's ``post`` and
+    each duration flow's ``proj``.  At zero, the flow's WaveNet (and its
+    gate) would reach nothing downstream."""
+    gen = torch.Generator().manual_seed(seed)
+    convs = ([layer["post"] for layer in model["flow"]["layers"]]
+             + [flow["proj"] for flow in model["dp"]["flows"]])
+    with torch.no_grad():
+        for conv in convs:
+            for param in (conv.weight, conv.bias):
+                param.copy_(torch.randn(param.shape, generator=gen) * std)
+
+
+def gate_inputs(torch, shape, with_g: bool, seed: int):
+    """The [B, T, 2H] view of a contiguous [B, 2H, T], as wn passes it."""
     b, t, two_h = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    if channels_last:
-        x = torch.randn((b, t, two_h), generator=gen, device="cuda")
-    else:  # the [B, T, 2H] view of a contiguous [B, 2H, T], as wn passes
-        x = torch.randn((b, two_h, t), generator=gen,
-                        device="cuda").transpose(1, 2)
+    x = torch.randn((b, two_h, t), generator=gen,
+                    device="cuda").transpose(1, 2)
     g = (torch.randn((b, 1, two_h), generator=gen, device="cuda")
          if with_g else None)
     return x, g
 
 
-def check_gate(torch, gate, shape, channels_last, with_g, seed):
-    x, g = gate_inputs(torch, shape, channels_last, with_g, seed)
+def check_gate(torch, gate, shape, with_g, seed):
+    x, g = gate_inputs(torch, shape, with_g, seed)
     out = gate.fused_gate(x, g)
     torch.cuda.synchronize()
     ref = gate.fused_gate_reference(x if g is None else x + g)
@@ -190,12 +204,7 @@ def check_epilogue(torch, dop, wav, lo, hi):
     return int(lsb.max()), n_diff, float(peak_err)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import numpy as np
     import torch
 
@@ -224,153 +233,153 @@ def main(argv=None) -> int:
           "built_now": _build.build_info.get("seconds", 0.0) > 0,
           "ptxas": ptxas})
 
-    launches = {"fused_gate": None, "fused_epilogue": None}
     gate_shapes: list = []
     epi_shapes: list = []
-    if not args.quick:
-        # -- 2. main path ----------------------------------------------------
-        # count the acoustics calls and note the shapes the kernels get:
-        # each acoustics call gates [B, F, 2H] (channels first) per WN
-        # layer, each window decode feeds the epilogue [1, width * hop]
-        aco_calls = [0]
-        acoustics = vits.acoustics
-        decode_window = piper.PiperVoice._decode_window
+    # -- 2. main path -----------------------------------------------------------
+    # count the acoustics calls and note the shapes the kernels get:
+    # each acoustics call gates [B, F, 2H] (channels first) per WN
+    # layer, each window decode feeds the epilogue [1, width * hop]
+    aco_calls = [0]
+    acoustics = vits.acoustics
+    decode_window = piper.PiperVoice._decode_window
 
-        def counted_acoustics(p, hp, m_p, *a, max_frames, g=None, **k):
-            aco_calls[0] += 1
-            gate_shapes.append(((m_p.shape[0], max_frames,
-                                 2 * hp.hidden_channels), False,
-                                g is not None))
-            return acoustics(p, hp, m_p, *a, max_frames=max_frames, g=g, **k)
+    def counted_acoustics(p, hp, m_p, *a, max_frames, g=None, **k):
+        aco_calls[0] += 1
+        gate_shapes.append(((m_p.shape[0], max_frames,
+                             2 * hp.hidden_channels), g is not None))
+        return acoustics(p, hp, m_p, *a, max_frames=max_frames, g=g, **k)
 
-        def recorded_window(self, z_row, start, width, *a, **k):
-            epi_shapes.append((1, width * self.hp.hop_length))
-            return decode_window(self, z_row, start, width, *a, **k)
+    def recorded_window(self, z_row, start, width, *a, **k):
+        epi_shapes.append((1, width * self.hp.hop_length))
+        return decode_window(self, z_row, start, width, *a, **k)
 
-        vits.acoustics = counted_acoustics
-        piper.PiperVoice._decode_window = recorded_window
-        voice = PiperVoice.random(seed=0)  # medium width, on the GPU
-        synth = SpeechSynthesizer(voice)
-        hp = voice.hp
-        # warm cuDNN's heuristics and the allocator on both paths, so the
-        # timed run below is the steady state
-        list(synth.synthesize_parallel("Warm up."))
-        list(synth.synthesize_streamed("Warm up the stream too.",
-                                       chunk_size=45, chunk_padding=3))
-        torch.cuda.synchronize()
-        gate_shapes.clear()
-        epi_shapes.clear()
-        aco_calls[0] = 0
-        gate.fused_gate.launches = 0
-        dop.fused_epilogue.launches = 0
+    vits.acoustics = counted_acoustics
+    piper.PiperVoice._decode_window = recorded_window
+    voice = PiperVoice.random(seed=0)  # medium width, on the GPU
+    fill_zero_init(torch, voice.model, seed=1)
+    synth = SpeechSynthesizer(voice)
+    hp = voice.hp
+    # warm cuDNN's heuristics and the allocator on both paths, so the
+    # timed run below is the steady state
+    list(synth.synthesize_parallel("Warm up."))
+    list(synth.synthesize_streamed("Warm up the stream too.",
+                                   chunk_size=45, chunk_padding=3))
+    torch.cuda.synchronize()
+    gate_shapes.clear()
+    epi_shapes.clear()
+    aco_calls[0] = 0
+    gate.fused_gate.launches = 0
+    dop.fused_epilogue.launches = 0
 
-        with tempfile.TemporaryDirectory() as tmp:
-            wav_path = Path(tmp) / "smoke.wav"
-            t0 = time.perf_counter()
-            synth.synthesize_to_file(wav_path, TEXT)
-            torch.cuda.synchronize()
-            file_s = time.perf_counter() - t0
-            samples, rate, _ = read_wave_file(wav_path)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = Path(tmp) / "smoke.wav"
         t0 = time.perf_counter()
-        first_chunk_s = None
-        chunks = []
-        for chunk in synth.synthesize_streamed(STREAM_TEXT, chunk_size=45,
-                                               chunk_padding=3):
-            if first_chunk_s is None:
-                first_chunk_s = time.perf_counter() - t0
-            chunks.append(chunk.samples.data)
-        stream_s = time.perf_counter() - t0
+        synth.synthesize_to_file(wav_path, TEXT)
         torch.cuda.synchronize()
-        launches = {"fused_gate": gate.fused_gate.launches,
-                    "fused_epilogue": dop.fused_epilogue.launches}
-        vits.acoustics = acoustics
-        piper.PiperVoice._decode_window = decode_window
+        file_s = time.perf_counter() - t0
+        samples, rate, _ = read_wave_file(wav_path)
+    t0 = time.perf_counter()
+    first_chunk_s = None
+    chunks = []
+    for chunk in synth.synthesize_streamed(STREAM_TEXT, chunk_size=45,
+                                           chunk_padding=3):
+        if first_chunk_s is None:
+            first_chunk_s = time.perf_counter() - t0
+        chunks.append(chunk.samples.data)
+    stream_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {"fused_gate": gate.fused_gate.launches,
+                "fused_epilogue": dop.fused_epilogue.launches}
+    vits.acoustics = acoustics
+    piper.PiperVoice._decode_window = decode_window
 
-        n_wn = hp.flow_n_layers * hp.flow_wn_layers
-        require(launches["fused_gate"] == n_wn * aco_calls[0] > 0,
-                (launches, aco_calls))
-        require(launches["fused_epilogue"] == len(chunks) > 0,
-                (launches, len(chunks)))
-        stream = np.concatenate(chunks)
-        require(rate == 22050 and samples.size > 0, ("wav", rate, samples.size))
-        require(np.abs(samples).max() > 0, "silent WAV")
-        require(stream.size % hp.hop_length == 0
-                and bool(np.isfinite(stream).all()), "stream length/finite")
-        require(np.abs(stream).max() > 0, "silent stream")
-        file_audio_s = samples.size / rate
-        stream_audio_s = stream.size / rate
-        emit({"phase": "main", "card": gpu, "width": "medium",
-              "acoustics_calls": aco_calls[0], "launches": launches,
-              "file_wall_s": file_s,
-              "file_audio_s": file_audio_s,
-              "file_rtf": file_s / file_audio_s,
-              "stream_wall_s": stream_s,
-              "stream_audio_s": stream_audio_s,
-              "stream_rtf": stream_s / stream_audio_s,
-              "first_chunk_s": first_chunk_s,
-              "chunks": len(chunks)})
+    n_wn = hp.flow_n_layers * hp.flow_wn_layers
+    require(launches["fused_gate"] == n_wn * aco_calls[0] > 0,
+            (launches, aco_calls))
+    require(launches["fused_epilogue"] == len(chunks) > 0,
+            (launches, len(chunks)))
+    stream = np.concatenate(chunks)
+    require(rate == 22050 and samples.size > 0, ("wav", rate, samples.size))
+    require(np.abs(samples).max() > 0, "silent WAV")
+    require(stream.size % hp.hop_length == 0
+            and bool(np.isfinite(stream).all()), "stream length/finite")
+    require(np.abs(stream).max() > 0, "silent stream")
+    file_audio_s = samples.size / rate
+    stream_audio_s = stream.size / rate
+    emit({"phase": "main", "card": gpu, "width": "medium",
+          "acoustics_calls": aco_calls[0], "launches": launches,
+          "file_wall_s": file_s,
+          "file_audio_s": file_audio_s,
+          "file_rtf": file_s / file_audio_s,
+          "stream_wall_s": stream_s,
+          "stream_audio_s": stream_audio_s,
+          "stream_rtf": stream_s / stream_audio_s,
+          "first_chunk_s": first_chunk_s,
+          "chunks": len(chunks)})
 
-        # -- 3. GPU against the CPU port -------------------------------------
-        cpu_voice = PiperVoice.random(seed=0, device="cpu")
-        ids = voice._encode_phonemes(voice.phonemize_text(STREAM_TEXT)[0])
-        with torch.inference_mode():
-            outs = {}
-            for name, v in (("cpu", cpu_voice), ("gpu", voice)):
-                tok, lens, b, t = v._pad_batch([ids])
-                dur = vits.per_row_normal(0, 1, piper.DUR_NOISE, (b, t, 2))
-                outs[name] = vits.encode_text(
-                    v.model, hp, tok, lens, dur.to(v.device), noise_w=0.8,
-                    length_scale=1.0)
-            m_p, logs_p, w_ceil, x_mask, _ = outs["cpu"]
-            flips = int((outs["gpu"][2].cpu() != w_ceil).sum())
-            f = bucket_for(int(w_ceil.sum()), FRAME_BUCKETS)
-            prior = vits.per_row_normal(0, 1, piper.PRIOR_NOISE,
-                                        (1, f, hp.inter_channels))
-            wavs = {}
-            for name, v, dev in (("cpu", cpu_voice, "cpu"),
-                                 ("gpu", voice, voice.device)):
-                mp_, lp_ = outs[name][0], outs[name][1]
-                z, _, _ = vits.acoustics(
-                    v.model, hp, mp_, lp_, w_ceil.to(dev), x_mask.to(dev),
-                    prior.to(dev), noise_scale=0.667, max_frames=f)
-                wavs[name] = vits.decode_with(v.model, hp, z).cpu()
-        diff = float((wavs["gpu"] - wavs["cpu"]).abs().max())
-        emit({"phase": "parity", "card": gpu, "frames": int(w_ceil.sum()),
-              "frame_bucket": f, "w_ceil_flips": flips,
-              "max_abs_diff": diff, "tolerance": 1e-3})
-        require(math.isfinite(diff) and diff <= 1e-3, ("gpu vs cpu", diff))
+    # -- 3. GPU against the CPU port --------------------------------------------
+    cpu_voice = PiperVoice.random(seed=0, device="cpu")
+    fill_zero_init(torch, cpu_voice.model, seed=1)
+    ids = voice._encode_phonemes(voice.phonemize_text(STREAM_TEXT)[0])
+    with torch.inference_mode():
+        outs = {}
+        for name, v in (("cpu", cpu_voice), ("gpu", voice)):
+            tok, lens, b, t = v._pad_batch([ids])
+            dur = vits.per_row_normal(0, 1, piper.DUR_NOISE, (b, t, 2))
+            outs[name] = vits.encode_text(
+                v.model, hp, tok, lens, dur.to(v.device), noise_w=0.8,
+                length_scale=1.0)
+        m_p, logs_p, w_ceil, x_mask, _ = outs["cpu"]
+        flips = int((outs["gpu"][2].cpu() != w_ceil).sum())
+        f = bucket_for(int(w_ceil.sum()), FRAME_BUCKETS)
+        prior = vits.per_row_normal(0, 1, piper.PRIOR_NOISE,
+                                    (1, f, hp.inter_channels))
+        wavs = {}
+        for name, v, dev in (("cpu", cpu_voice, "cpu"),
+                             ("gpu", voice, voice.device)):
+            mp_, lp_ = outs[name][0], outs[name][1]
+            z, _, _ = vits.acoustics(
+                v.model, hp, mp_, lp_, w_ceil.to(dev), x_mask.to(dev),
+                prior.to(dev), noise_scale=0.667, max_frames=f)
+            wavs[name] = vits.decode_with(v.model, hp, z).cpu()
+    diff = float((wavs["gpu"] - wavs["cpu"]).abs().max())
+    peak = float(wavs["cpu"].abs().max())
+    tolerance = 1e-3 * peak  # relative to the waveform's peak
+    emit({"phase": "parity", "card": gpu, "frames": int(w_ceil.sum()),
+          "frame_bucket": f, "w_ceil_flips": flips, "peak": peak,
+          "max_abs_diff": diff, "max_rel_diff": diff / peak,
+          "tolerance": tolerance, "tolerance_rel": 1e-3})
+    require(peak > 0 and math.isfinite(diff) and diff <= tolerance,
+            ("gpu vs cpu", diff, peak))
 
-        # -- 4. where the time goes -------------------------------------------
-        with tempfile.TemporaryDirectory() as tmp:
-            file_prof = profile_run(torch, lambda: synth.synthesize_to_file(
-                Path(tmp) / "profiled.wav", TEXT))
-        stream_prof = profile_run(torch, lambda: list(
-            synth.synthesize_streamed(STREAM_TEXT, chunk_size=45,
-                                      chunk_padding=3)))
-        emit({"phase": "profile", "card": gpu, "file": file_prof,
-              "stream": stream_prof})
+    # -- 4. where the time goes ------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        file_prof = profile_run(torch, lambda: synth.synthesize_to_file(
+            Path(tmp) / "profiled.wav", TEXT))
+    stream_prof = profile_run(torch, lambda: list(
+        synth.synthesize_streamed(STREAM_TEXT, chunk_size=45,
+                                  chunk_padding=3)))
+    emit({"phase": "profile", "card": gpu, "file": file_prof,
+          "stream": stream_prof})
 
     # -- 5. kernels against their plain versions --------------------------------
     rows = []
-    # gate: the main path's shapes (channels-first views, as wn passes) and
-    # the fixed check shapes
+    # gate: the main path's shapes and the fixed check shapes
     gate_cases = sorted(set(gate_shapes))
-    gate_cases += [((4, 512, 384), False, True), ((4, 512, 384), True, True),
-                   ((2, 37, 48), True, True), ((2, 37, 48), False, False)]
+    gate_cases += [((4, 512, 384), True), ((2, 37, 48), True),
+                   ((2, 37, 48), False)]
     gate_err = 0.0
-    for i, (shape, cl, with_g) in enumerate(gate_cases):
-        x, g, err = check_gate(torch, gate, shape, cl, with_g, seed=i)
+    for i, (shape, with_g) in enumerate(gate_cases):
+        x, g, err = check_gate(torch, gate, shape, with_g, seed=i)
         gate_err = max(gate_err, err)
         emit({"phase": "gate_check", "shape": list(shape),
-              "layout": "channels_last" if cl else "channels_first",
               "g": with_g, "max_abs_err": err,
               "ms": time_ms(torch, lambda: gate.fused_gate(x, g)),
               "device_ms": device_ms(torch, lambda: gate.fused_gate(x, g),
                                      name="gate_kernel")})
-    # time at the main path's most frequent shape (or the check shape)
-    shape, cl, with_g = (Counter(gate_shapes).most_common(1)[0][0]
-                         if gate_shapes else gate_cases[0])
-    x, g = gate_inputs(torch, shape, cl, with_g, seed=99)
+    # time at the main path's most frequent shape
+    shape, with_g = Counter(gate_shapes).most_common(1)[0][0]
+    x, g = gate_inputs(torch, shape, with_g, seed=99)
     b, t, two_h = shape
     kernel = lambda: gate.fused_gate(x, g)  # noqa: E731
     plain = lambda: gate.fused_gate_reference(  # noqa: E731
@@ -392,7 +401,6 @@ def main(argv=None) -> int:
                               >= nops / F32_OPS_PER_S else "operations"),
                  "library_ms": None, "device_ms": kernel_dev,
                  "plain_device_ms": plain_dev, "timed_shape": list(shape),
-                 "timed_layout": "channels_last" if cl else "channels_first",
                  "checked_shapes": len(gate_cases)})
 
     # epilogue: the main path's window shapes and a [4, 256*256] check with
@@ -416,11 +424,8 @@ def main(argv=None) -> int:
               "device_ms": device_ms(
                   torch, lambda: dop.fused_epilogue(wav, lo, hi, 42),
                   name="epilogue_kernel")})
-    if epi_shapes:
-        b, s = Counter(epi_shapes).most_common(1)[0][0]
-        bounds = [(3 * 256, s - 3 * 256)] * b
-    else:
-        b, s, bounds = epi_cases[0]
+    b, s = Counter(epi_shapes).most_common(1)[0][0]
+    bounds = [(3 * 256, s - 3 * 256)] * b
     wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=98)
     kernel = lambda: dop.fused_epilogue(wav, lo, hi, 42)  # noqa: E731
     plain = lambda: dop.fused_epilogue_reference(  # noqa: E731

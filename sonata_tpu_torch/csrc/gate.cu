@@ -7,15 +7,13 @@
 // two floats and writes one (12 bytes per element, 12*H bytes per row of
 // the [rows, 2H] pre-activation), so the kernel is a single streaming pass:
 // one thread per output element in a grid-stride loop, neighbouring
-// threads on neighbouring addresses in both layouts it accepts.  The
+// threads on neighbouring time steps, so loads and stores coalesce.  The
 // broadcast conditioning add (x + g) is folded into the loads, so the
 // caller's add costs no extra pass over memory.
 //
-// Layouts (the caller's wn keeps channels first, the public [B, T, 2H]
-// API may hand either):
-//   channels_last  = 1: y [B, T, 2H] -> out [B, T, H]
-//   channels_last  = 0: y [B, 2H, T] -> out [B, H, T]
-// g, when not null, is [B, 2H] (the [B, 1, 2H] conditioning, squeezed).
+// Layout: channels first, as the port's WaveNet keeps its activations
+// between convolutions: y [B, 2H, T] -> out [B, H, T].  g, when not null,
+// is [B, 2H] (the [B, 1, 2H] conditioning, squeezed).
 //
 // Built without --use_fast_math: tanhf and expf are the IEEE-accurate
 // library versions the tolerances assume.
@@ -27,25 +25,17 @@ namespace {
 
 __global__ void gate_kernel(const float* __restrict__ y,
                             const float* __restrict__ g,
-                            float* __restrict__ out, int64_t n, int T, int H,
-                            int channels_last) {
+                            float* __restrict__ out, int64_t n, int T,
+                            int H) {
   const int64_t step = (int64_t)blockDim.x * gridDim.x;
-  const int64_t half = channels_last ? (int64_t)H : (int64_t)H * T;
+  const int64_t half = (int64_t)H * T;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
-    int64_t b, c, ia;
-    if (channels_last) {
-      c = i % H;
-      const int64_t bt = i / H;  // b * T + t
-      b = bt / T;
-      ia = bt * 2 * H + c;
-    } else {
-      const int64_t t = i % T;
-      const int64_t bc = i / T;  // b * H + c
-      c = bc % H;
-      b = bc / H;
-      ia = (b * 2 * H + c) * T + t;
-    }
+    const int64_t t = i % T;
+    const int64_t bc = i / T;  // b * H + c
+    const int64_t c = bc % H;
+    const int64_t b = bc / H;
+    const int64_t ia = (b * 2 * H + c) * T + t;
     float a = y[ia];
     float s = y[ia + half];
     if (g != nullptr) {
@@ -59,8 +49,8 @@ __global__ void gate_kernel(const float* __restrict__ y,
 }  // namespace
 
 extern "C" int sonata_gate_f32(const float* y, const float* g, float* out,
-                               int B, int T, int H, int channels_last,
-                               int device, void* stream) {
+                               int B, int T, int H, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int64_t n = (int64_t)B * T * H;
@@ -69,7 +59,7 @@ extern "C" int sonata_gate_f32(const float* y, const float* g, float* out,
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;  // grid-stride covers the rest
   gate_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      y, g, out, n, T, H, channels_last);
+      y, g, out, n, T, H);
   return (int)cudaGetLastError();
 }
 

@@ -14,10 +14,12 @@ On a CUDA tensor :func:`fused_epilogue` launches the hand-written kernel
 version.  What bounds the kernel on the card: memory (6 bytes a sample);
 its design is described in the source.
 
-``SONATA_FUSED_EPILOGUE`` keeps the JAX package's values: ``off`` runs the
-host-side slice + :meth:`AudioSamples.crossfade` instead, and both ``lax``
-and ``pallas`` (the default) select this fused epilogue.  The int8
-weight-only decoder arm of the JAX module is not ported yet.
+``SONATA_FUSED_EPILOGUE`` selects ``fused`` (the default: this epilogue)
+or ``off`` (the host-side slice + :meth:`AudioSamples.crossfade`, which only
+a voice on the CPU takes).  ``lax`` and ``pallas``, the JAX package's names
+for its two fused arms, are accepted as aliases of ``fused`` so that one
+environment serves both packages.  The int8 weight-only decoder arm of the
+JAX module is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,23 +33,25 @@ import torch
 from ..core import OperationError
 
 FUSED_EPILOGUE_ENV = "SONATA_FUSED_EPILOGUE"
-FUSED_EPILOGUE_MODES = ("pallas", "lax", "off")
+FUSED_EPILOGUE_MODES = ("fused", "off")
+#: the JAX package's fused arms; each means ``fused`` here
+FUSED_EPILOGUE_ALIASES = ("lax", "pallas")
 
 _HALF_PI = torch.tensor(np.float32(np.pi / 2))
 
 
 def resolve_fused_epilogue(setting: Optional[str] = None,
                            env: Optional[dict] = None) -> str:
-    """``pallas`` | ``lax`` | ``off``; a typo fails loudly."""
+    """``fused`` (the default) | ``off``; a typo fails loudly."""
     if setting is None:
         env = os.environ if env is None else env
         setting = env.get(FUSED_EPILOGUE_ENV, "").strip().lower()
-    if not setting:
-        return "lax"
+    if not setting or setting in FUSED_EPILOGUE_ALIASES:
+        return "fused"
     if setting not in FUSED_EPILOGUE_MODES:
         raise OperationError(
             f"{FUSED_EPILOGUE_ENV}={setting!r} is not one of "
-            f"{'/'.join(FUSED_EPILOGUE_MODES)}")
+            f"{'/'.join(FUSED_EPILOGUE_MODES + FUSED_EPILOGUE_ALIASES)}")
     return setting
 
 

@@ -14,9 +14,11 @@ streaming.  The stages are the reference's (``vits.encode_text`` →
 - **Streaming** (:meth:`PiperVoice.stream_synthesis`): one row of encode
   and acoustics, then one window decode per chunk of the reference's chunk
   plan, each ending in the fused taper + quantize epilogue (the CUDA
-  kernel on the GPU) — or, with ``SONATA_FUSED_EPILOGUE=off``, in the host
-  slice + crossfade.  The stream coalescers and the iteration loop of the
-  reference are later work; here each request runs on its own.
+  kernel on the GPU) — or, on a CPU voice with
+  ``SONATA_FUSED_EPILOGUE=off``, in the host slice + crossfade.  A GPU voice
+  refuses ``off``: its windows never leave the card untapered.  The stream
+  coalescers and the iteration loop of the reference are later work; here
+  each request runs on its own.
 
 The frame budget is exact.  The JAX package estimates the frame bucket
 before its single jitted program runs and retries on overflow, because the
@@ -117,6 +119,11 @@ class PiperVoice(BaseModel):
         self.config = config
         self.hp = config.hyper
         self.fused_epilogue = decode_opts.resolve_fused_epilogue()
+        if self.fused_epilogue == "off" and self.device.type == "cuda":
+            raise OperationError(
+                f"{decode_opts.FUSED_EPILOGUE_ENV}=off tapers the stream on "
+                "the host; a voice on the GPU always runs the epilogue "
+                "kernel")
         if not isinstance(params, VitsModel):
             params = params_from_numpy(params, self.hp)
         self.model = params.to(self.device).eval()
@@ -518,8 +525,8 @@ class PiperVoice(BaseModel):
             g = vits.speaker_embedding(
                 self.model, torch.tensor([sid0], device=self.device))
         wav = vits.decode_with(self.model, self.hp, window, g=g)
-        if not fused:
-            samples = AudioSamples(wav[0, lo:hi].cpu().numpy())
+        if not fused:  # a CPU voice: the GPU refuses "off" at construction
+            samples = AudioSamples(wav[0, lo:hi].numpy())
             return samples.crossfade(CROSSFADE_SAMPLES)  # taper (:838)
         bounds = torch.tensor([[lo], [hi]], dtype=torch.int32,
                               device=self.device)

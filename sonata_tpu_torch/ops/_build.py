@@ -107,7 +107,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sonata_gate_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.sonata_gate_f32.argtypes = [p, p, p, i, i, i, i, p]
             lib.sonata_gate_f32.restype = i
             lib.sonata_epilogue_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.sonata_epilogue_f32.restype = i

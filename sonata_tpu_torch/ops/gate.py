@@ -10,9 +10,9 @@ the card to the plain version: a CUDA tensor the kernel cannot take raises.
 What bounds it on the card: memory.  A row of the ``[rows, 2H]``
 pre-activation costs 12·H bytes (read 2H floats, write H); the
 transcendentals are a few operations per byte.  The kernel therefore makes
-one streaming pass, coalesced in whichever layout the caller holds, and
-folds the broadcast ``g`` add into its loads rather than paying a separate
-``x + g`` pass.  At Piper widths one call moves about a megabyte, so launch
+one streaming pass, coalesced in the channels-first layout the port's
+``wn`` holds, and folds the broadcast ``g`` add into its loads rather than
+paying a separate ``x + g`` pass.  At Piper widths one call moves about a megabyte, so launch
 latency dominates; fusing the gate into the WaveNet layer is the way to a
 faster one.
 """
@@ -37,9 +37,9 @@ def fused_gate(x: torch.Tensor,
     """Gated activation with optional conditioning.
 
     ``x: [B, T, 2H]``, ``g: [B, 1, 2H]`` or None → ``[B, T, H]``.  On the
-    GPU, ``x`` is either contiguous or the ``[B, T, 2H]`` view of a
-    contiguous ``[B, 2H, T]`` tensor (the channels-first layout the port's
-    ``wn`` keeps); the result is laid out the same way as ``x``.
+    GPU, ``x`` must be the ``[B, T, 2H]`` view of a contiguous
+    ``[B, 2H, T]`` tensor (the channels-first layout the port's ``wn``
+    keeps); the result is the same kind of view of a ``[B, H, T]`` tensor.
     """
     if x.device.type == "cpu":
         return fused_gate_reference(x if g is None else x + g)
@@ -51,17 +51,12 @@ def fused_gate(x: torch.Tensor,
             f"{tuple(x.shape)}")
     b, t, two_h = x.shape
     hidden = two_h // 2
-    if x.is_contiguous():
-        channels_last = 1
-        out = torch.empty((b, t, hidden), dtype=x.dtype, device=x.device)
-    elif x.transpose(1, 2).is_contiguous():
-        channels_last = 0
-        out = torch.empty((b, hidden, t), dtype=x.dtype,
-                          device=x.device).transpose(1, 2)
-    else:
+    if not x.transpose(1, 2).is_contiguous():
         raise OperationError(
-            "fused_gate: x must be contiguous [B, T, 2H] or a view of a "
-            "contiguous [B, 2H, T]")
+            "fused_gate: x must be the [B, T, 2H] view of a contiguous "
+            "[B, 2H, T] tensor")
+    out = torch.empty((b, hidden, t), dtype=x.dtype,
+                      device=x.device).transpose(1, 2)
     g_ptr = None
     if g is not None:
         if (g.dtype != torch.float32 or g.device != x.device
@@ -74,8 +69,7 @@ def fused_gate(x: torch.Tensor,
     from ._build import check, library, stream_of
 
     rc = library().sonata_gate_f32(x.data_ptr(), g_ptr, out.data_ptr(), b, t,
-                                   hidden, channels_last, x.device.index,
-                                   stream_of(x))
+                                   hidden, x.device.index, stream_of(x))
     check(rc, "fused_gate")
     fused_gate.launches += 1
     return out

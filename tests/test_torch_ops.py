@@ -136,10 +136,13 @@ def test_epilogue_dequantize_matches_host_crossfade():
 
 
 def test_resolve_fused_epilogue_modes():
-    assert tdo.resolve_fused_epilogue(env={}) == "lax"
+    assert tdo.resolve_fused_epilogue(env={}) == "fused"
     assert tdo.resolve_fused_epilogue("off") == "off"
+    assert tdo.resolve_fused_epilogue("fused") == "fused"
+    # the JAX package's names for its fused arms are aliases of "fused"
     assert tdo.resolve_fused_epilogue(env={tdo.FUSED_EPILOGUE_ENV: "PALLAS"}) \
-        == "pallas"
+        == "fused"
+    assert tdo.resolve_fused_epilogue("lax") == "fused"
     with pytest.raises(OperationError):
         tdo.resolve_fused_epilogue("fast")
 
@@ -181,32 +184,33 @@ def test_build_key_follows_sources_and_flags(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels_last", [True, False])
 @pytest.mark.parametrize("b,t,h,with_g", [(4, 512, 192, True),
                                            (2, 37, 24, False)])
-def test_gate_kernel_matches_plain(cuda, b, t, h, with_g, channels_last):
+def test_gate_kernel_matches_plain(cuda, b, t, h, with_g):
     x, g = _gate_inputs(b, t, h, seed=5)
-    xt = torch.from_numpy(x).to(cuda)
-    if not channels_last:
-        xt = xt.transpose(1, 2).contiguous().transpose(1, 2)
+    # the [B, T, 2H] view of a contiguous [B, 2H, T], as wn passes it
+    xt = torch.from_numpy(x).to(cuda).transpose(1, 2).contiguous()
+    xt = xt.transpose(1, 2)
     gt = torch.from_numpy(g).to(cuda) if with_g else None
     before = fused_gate.launches
     out = fused_gate(xt, gt)
     torch.cuda.synchronize()
     assert fused_gate.launches == before + 1
     ref = fused_gate_reference(xt if gt is None else xt + gt)
-    # the result keeps the input's layout
-    assert (out if channels_last else out.transpose(1, 2)).is_contiguous()
+    # the result is the same kind of view, of a contiguous [B, H, T]
+    assert out.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(out, ref, atol=2e-6, rtol=0)
 
 
 @pytest.mark.cuda
 def test_gate_kernel_refuses_what_it_cannot_take(cuda):
-    x = torch.zeros((2, 8, 6), device=cuda)
+    x = torch.zeros((2, 6, 8), device=cuda).transpose(1, 2)
     with pytest.raises(OperationError):
         fused_gate(x.double())
     with pytest.raises(OperationError):
-        fused_gate(x[:, ::2])  # neither layout
+        fused_gate(x.contiguous())  # channels last
+    with pytest.raises(OperationError):
+        fused_gate(x[:, ::2])  # not a view of a contiguous [B, 2H, T]
     with pytest.raises(OperationError):
         fused_gate(x, torch.zeros((2, 1, 4), device=cuda))
 

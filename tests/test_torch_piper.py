@@ -181,6 +181,19 @@ def test_entry_points_run_on_the_gpu_unless_asked_for_the_cpu(voice_paths):
     assert voice.device.type == "cpu"
 
 
+def test_gpu_voice_refuses_the_host_epilogue(voice_paths, monkeypatch):
+    """``SONATA_FUSED_EPILOGUE=off`` would taper on the host; a voice on
+    the card refuses it before it takes any weights onto the device."""
+    from sonata_tpu_torch.models import piper
+
+    monkeypatch.setenv("SONATA_FUSED_EPILOGUE", "off")
+    monkeypatch.setattr(piper, "resolve_device",
+                        lambda device=None: torch.device("cuda", 0))
+    monkeypatch.setattr(piper, "_full_float32", lambda: None)
+    with pytest.raises(OperationError, match="SONATA_FUSED_EPILOGUE=off"):
+        PiperVoice.from_config_path(voice_paths["single"])
+
+
 def test_random_voice_is_seeded_and_streams_on_cpu():
     a = PiperVoice.random(seed=5, device="cpu", model=dict(
         inter_channels=16, hidden_channels=16, filter_channels=32,

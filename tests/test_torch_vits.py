@@ -8,6 +8,11 @@ downstream.  The noise is the reference's: ``vits.per_row_normal`` under
 the reference's own key split (``vits.infer``), handed to the port as
 explicit tensors.
 
+The layers ``init_vits`` starts at zero (each flow layer's ``post``, each
+duration flow's ``proj``) are given random values first: at zero the flow's
+WaveNet and coupling, and the duration flows' spline, would reach no output
+that is compared.
+
 Tolerance: atol 1e-4 on every float output (float32 on the CPU; several
 stacked layers of differently ordered sums), exact equality on the integer
 durations, frame counts and the alignment path.
@@ -30,11 +35,23 @@ N_VOCAB = 40
 B, T, F = 2, 16, 64
 
 
+def _fill_zero_init_layers(params, rng, std=0.1):
+    """Random values in the layers ``init_vits`` starts at zero."""
+    convs = ([layer["post"] for layer in params["flow"]["layers"]]
+             + [flow["proj"] for flow in params["dp"]["flows"]])
+    for conv in convs:
+        for key in ("w", "b"):
+            conv[key] = jax.numpy.asarray(
+                rng.standard_normal(conv[key].shape).astype(np.float32) * std)
+    return params
+
+
 @pytest.fixture(scope="module", params=[1, 4], ids=["single", "multi"])
 def setup(request):
     n_speakers = request.param
-    params = jv.init_vits(jax.random.PRNGKey(0), HP, n_vocab=N_VOCAB,
-                          n_speakers=n_speakers)
+    params = _fill_zero_init_layers(
+        jv.init_vits(jax.random.PRNGKey(0), HP, n_vocab=N_VOCAB,
+                     n_speakers=n_speakers), np.random.default_rng(11))
     port = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), HP)
     rng = np.random.default_rng(1)
     ids = rng.integers(3, N_VOCAB, size=(B, T)).astype(np.int32)
