@@ -28,10 +28,19 @@ exits non-zero; nothing is caught):
               device-busy time and idle share, kernel launches, and the
               kernels that take the most device time.
 5. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at fixed check shapes, each timed
-              (median of 50 launches with CUDA events, and the kernel's
-              own device time from the profiler); the ``kernels`` line
-              times each at the main path's most frequent shape.
+              the main path's shapes and at fixed check shapes that reach
+              the kernels' edges (ragged and misaligned rows, a strided
+              ``g``, slice boundaries inside fades).  Each is timed three
+              ways: ``device_ms``, the kernel's own device time per call
+              from the profiler; ``host_us``, wall time per call over 200
+              back-to-back calls with one synchronise at the end (what the
+              wrapper costs the host); ``call_ms``, host and device for one
+              call (CUDA events around a single call).  ``floor_device_ms``
+              is the device time of the smallest kernel (a one-element
+              ``zero_()``) in the same run, and ``bound_share`` the bound
+              over ``device_ms``.  The ``kernels`` line times each kernel
+              at the main path's most frequent shape; its ``ms`` and
+              ``plain_ms`` are device times per call.
 6. the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -77,8 +86,10 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 50) -> float:
-    """Median device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def call_ms(torch, fn, iters: int = 50) -> float:
+    """Host and device for one call: median over ``iters`` single calls of
+    the CUDA-event time around it (the device idles while the host
+    prepares the launch, so this is mostly host time for a small kernel)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -92,6 +103,18 @@ def time_ms(torch, fn, iters: int = 50) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Wall microseconds per call over ``calls`` back-to-back calls with no
+    synchronise between them, and one at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def device_ms(torch, fn, iters: int = 20, name=None):
@@ -160,19 +183,57 @@ def fill_zero_init(torch, model, seed: int, std: float = 0.02) -> None:
                 param.copy_(torch.randn(param.shape, generator=gen) * std)
 
 
-def gate_inputs(torch, shape, with_g: bool, seed: int):
-    """The [B, T, 2H] view of a contiguous [B, 2H, T], as wn passes it."""
+def gate_inputs(torch, shape, g_mode, seed: int, offset: int = 0):
+    """The [B, T, 2H] view of a contiguous [B, 2H, T], as wn passes it,
+    ``offset`` floats into its storage; ``g`` None, a dense [B, 1, 2H], or
+    (``strided``) layer 1's slice of a stacked [B, 2H*4, 1] conditioning,
+    transposed, as wn passes it."""
     b, t, two_h = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((b, two_h, t), generator=gen,
-                    device="cuda").transpose(1, 2)
-    g = (torch.randn((b, 1, two_h), generator=gen, device="cuda")
-         if with_g else None)
+    flat = torch.randn((offset + b * two_h * t,), generator=gen,
+                       device="cuda")
+    x = flat[offset:].view(b, two_h, t).transpose(1, 2)
+    g = None
+    if g_mode == "dense":
+        g = torch.randn((b, 1, two_h), generator=gen, device="cuda")
+    elif g_mode == "strided":
+        g = torch.randn((b, 4 * two_h, 1), generator=gen,
+                        device="cuda")[:, two_h:2 * two_h].transpose(1, 2)
     return x, g
 
 
-def check_gate(torch, gate, shape, with_g, seed):
-    x, g = gate_inputs(torch, shape, with_g, seed)
+def gate_bound(shape, with_g: bool):
+    """(bound ms, what bounds it) of the gate: read 2H floats and write H a
+    time step, plus g; 7 operations an output."""
+    b, t, two_h = shape
+    nbytes = 4 * (b * t * two_h + b * t * two_h // 2
+                  + (b * two_h if with_g else 0))
+    return bound(nbytes, 7 * b * t * two_h // 2)
+
+
+def epilogue_bound(b: int, s: int):
+    """(bound ms, what bounds it) of the epilogue: read a float and write
+    an int16 a sample, plus lo, hi and peak; 12 operations a sample."""
+    return bound(b * s * (4 + 2) + b * (4 + 4 + 4), 12 * b * s)
+
+
+def bound(nbytes: int, nops: int):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def timings(torch, fn, name: str, bound_ms: float, floor_ms: float) -> dict:
+    """The kernel's timing fields for a ``*_check`` line."""
+    dev = device_ms(torch, fn, name=name)
+    require(dev is not None, f"no device time recorded for {name}")
+    return {"device_ms": dev, "host_us": host_us(torch, fn),
+            "call_ms": call_ms(torch, fn), "floor_device_ms": floor_ms,
+            "bound_ms": bound_ms, "bound_share": bound_ms / dev}
+
+
+def check_gate(torch, gate, shape, g_mode, seed, offset=0):
+    x, g = gate_inputs(torch, shape, g_mode, seed, offset)
     out = gate.fused_gate(x, g)
     torch.cuda.synchronize()
     ref = gate.fused_gate_reference(x if g is None else x + g)
@@ -181,9 +242,11 @@ def check_gate(torch, gate, shape, with_g, seed):
     return x, g, err
 
 
-def epilogue_inputs(torch, b, s, bounds, seed):
+def epilogue_inputs(torch, b, s, bounds, seed, offset=0):
+    """wav [b, s] at ``offset`` floats into its storage, and lo/hi."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    wav = torch.randn((b, s), generator=gen, device="cuda") * 0.5
+    flat = torch.randn((offset + b * s,), generator=gen, device="cuda")
+    wav = flat[offset:].view(b, s).mul_(0.5)
     lo = torch.tensor([lo for lo, _ in bounds], dtype=torch.int32,
                       device="cuda")
     hi = torch.tensor([hi for _, hi in bounds], dtype=torch.int32,
@@ -363,90 +426,97 @@ def main() -> int:
           "stream": stream_prof})
 
     # -- 5. kernels against their plain versions --------------------------------
+    tiny = torch.empty(1, device="cuda")
+    floor_ms = device_ms(torch, tiny.zero_)
+    require(floor_ms is not None, "no device time recorded for zero_()")
+    emit({"phase": "floor", "card": gpu, "floor_device_ms": floor_ms})
     rows = []
-    # gate: the main path's shapes and the fixed check shapes
-    gate_cases = sorted(set(gate_shapes))
-    gate_cases += [((4, 512, 384), True), ((2, 37, 48), True),
-                   ((2, 37, 48), False)]
+    # gate: the main path's shapes (a conditioned one takes g as wn passes
+    # it) and fixed check shapes: T % 4 == 1 and 2, x at a storage offset,
+    # g dense and strided
+    gate_cases = [(shape, "strided" if with_g else None, 0)
+                  for shape, with_g in sorted(set(gate_shapes))]
+    gate_cases += [((4, 512, 384), "dense", 0), ((4, 384, 384), "strided", 0),
+                   ((2, 37, 48), "dense", 0), ((2, 37, 48), None, 0),
+                   ((2, 38, 48), "strided", 0), ((2, 38, 48), None, 0),
+                   ((2, 64, 48), None, 1), ((2, 38, 48), "dense", 3)]
     gate_err = 0.0
-    for i, (shape, with_g) in enumerate(gate_cases):
-        x, g, err = check_gate(torch, gate, shape, with_g, seed=i)
+    for i, (shape, g_mode, offset) in enumerate(gate_cases):
+        x, g, err = check_gate(torch, gate, shape, g_mode, seed=i,
+                               offset=offset)
         gate_err = max(gate_err, err)
-        emit({"phase": "gate_check", "shape": list(shape),
-              "g": with_g, "max_abs_err": err,
-              "ms": time_ms(torch, lambda: gate.fused_gate(x, g)),
-              "device_ms": device_ms(torch, lambda: gate.fused_gate(x, g),
-                                     name="gate_kernel")})
+        emit({"phase": "gate_check", "shape": list(shape), "g": g_mode,
+              "offset": offset, "max_abs_err": err,
+              **timings(torch, lambda: gate.fused_gate(x, g), "gate_kernel",
+                        gate_bound(shape, g is not None)[0], floor_ms)})
     # time at the main path's most frequent shape
     shape, with_g = Counter(gate_shapes).most_common(1)[0][0]
-    x, g = gate_inputs(torch, shape, with_g, seed=99)
-    b, t, two_h = shape
+    x, g = gate_inputs(torch, shape, "strided" if with_g else None, seed=99)
     kernel = lambda: gate.fused_gate(x, g)  # noqa: E731
     plain = lambda: gate.fused_gate_reference(  # noqa: E731
         x if g is None else x + g)
-    kernel_ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-    kernel_dev, plain_dev = (device_ms(torch, kernel, name="gate_kernel"),
-                             device_ms(torch, plain))
-    nbytes = 4 * (b * t * two_h + b * t * two_h // 2
-                  + (b * two_h if with_g else 0))
-    nops = 7 * b * t * two_h // 2
-    bound_s = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S)
+    bound_ms, bound_by = gate_bound(shape, with_g)
+    kt = timings(torch, kernel, "gate_kernel", bound_ms, floor_ms)
+    plain_dev = device_ms(torch, plain)
+    require(plain_dev is not None, "no device time recorded for the plain")
     rows.append({"name": "fused_gate", "route": "cuda",
                  "source": "sonata_tpu_torch/csrc/gate.cu",
                  "replaces": "sonata_tpu/ops/gate.py:58",
                  "launches": launches["fused_gate"],
-                 "max_abs_err": gate_err, "ms": kernel_ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                              >= nops / F32_OPS_PER_S else "operations"),
-                 "library_ms": None, "device_ms": kernel_dev,
-                 "plain_device_ms": plain_dev, "timed_shape": list(shape),
+                 "max_abs_err": gate_err, "ms": kt["device_ms"],
+                 "plain_ms": plain_dev, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None, **kt,
+                 "plain_call_ms": call_ms(torch, plain),
+                 "timed_shape": list(shape),
                  "checked_shapes": len(gate_cases)})
 
-    # epilogue: the main path's window shapes and a [4, 256*256] check with
-    # mixed ranges (full row, interior, shorter than 2*42, empty)
+    # epilogue: the main path's window shapes, a [4, 256*256] check with
+    # mixed ranges (full row, interior, shorter than 2*42, empty), rows off
+    # a vector boundary (S = 1001, B = 2), fewer samples than a block has
+    # threads (S = 256), lo/hi and both fades across the 4096-sample slice
+    # boundaries of [1, 32768], and wav at an odd storage offset
     s_chk = 256 * 256
     epi_cases = [(4, s_chk, [(0, s_chk), (768, s_chk - 768),
-                             (1000, 1050), (4000, 4000)])]
+                             (1000, 1050), (4000, 4000)], 0),
+                 (2, 1001, [(0, 1001), (37, 990)], 0),
+                 (1, 256, [(10, 250)], 0),
+                 (1, 32768, [(4096 - 20, 3 * 4096 + 20)], 0),
+                 (3, 4099, [(5, 4090), (2000, 2000), (100, 130)], 1)]
     for b, s in sorted(set(epi_shapes)):
-        epi_cases.append((b, s, [(3 * 256, s - 3 * 256)] * b))
+        epi_cases.append((b, s, [(3 * 256, s - 3 * 256)] * b, 0))
     epi_lsb, epi_diff, epi_peak = 0, 0, 0.0
-    for i, (b, s, bounds) in enumerate(epi_cases):
-        wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=i)
+    for i, (b, s, bounds, offset) in enumerate(epi_cases):
+        wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=i,
+                                      offset=offset)
         lsb, n_diff, peak_err = check_epilogue(torch, dop, wav, lo, hi)
         epi_lsb, epi_peak = max(epi_lsb, lsb), max(epi_peak, peak_err)
         epi_diff += n_diff
-        emit({"phase": "epilogue_check", "shape": [b, s],
+        emit({"phase": "epilogue_check", "shape": [b, s], "offset": offset,
+              "cluster": dop.epilogue_plan(b, s)[0],
               "max_lsb": lsb, "samples_differing": n_diff,
               "peak_rel_err": peak_err,
-              "ms": time_ms(torch, lambda: dop.fused_epilogue(wav, lo, hi,
-                                                              42)),
-              "device_ms": device_ms(
-                  torch, lambda: dop.fused_epilogue(wav, lo, hi, 42),
-                  name="epilogue_kernel")})
+              **timings(torch, lambda: dop.fused_epilogue(wav, lo, hi, 42),
+                        "epilogue_kernel", epilogue_bound(b, s)[0],
+                        floor_ms)})
     b, s = Counter(epi_shapes).most_common(1)[0][0]
     bounds = [(3 * 256, s - 3 * 256)] * b
     wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=98)
     kernel = lambda: dop.fused_epilogue(wav, lo, hi, 42)  # noqa: E731
     plain = lambda: dop.fused_epilogue_reference(  # noqa: E731
         wav, lo, hi, 42)
-    kernel_ms, plain_ms = time_ms(torch, kernel), time_ms(torch, plain)
-    kernel_dev, plain_dev = (device_ms(torch, kernel, name="epilogue_kernel"),
-                             device_ms(torch, plain))
-    nbytes = b * s * (4 + 2) + b * (4 + 4 + 4)
-    nops = 12 * b * s
+    bound_ms, bound_by = epilogue_bound(b, s)
+    kt = timings(torch, kernel, "epilogue_kernel", bound_ms, floor_ms)
+    plain_dev = device_ms(torch, plain)
+    require(plain_dev is not None, "no device time recorded for the plain")
     rows.append({"name": "fused_epilogue", "route": "cuda",
                  "source": "sonata_tpu_torch/csrc/epilogue.cu",
                  "replaces": "sonata_tpu/models/decode_opts.py:158",
                  "launches": launches["fused_epilogue"],
-                 "max_abs_err": epi_lsb, "ms": kernel_ms,
-                 "plain_ms": plain_ms,
-                 "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                 nops / F32_OPS_PER_S) * 1e3,
-                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                              >= nops / F32_OPS_PER_S else "operations"),
-                 "library_ms": None, "device_ms": kernel_dev,
-                 "plain_device_ms": plain_dev, "timed_shape": [b, s],
+                 "max_abs_err": epi_lsb, "ms": kt["device_ms"],
+                 "plain_ms": plain_dev, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None, **kt,
+                 "plain_call_ms": call_ms(torch, plain),
+                 "timed_shape": [b, s],
                  "samples_differing": epi_diff,
                  "peak_rel_err": epi_peak})
 

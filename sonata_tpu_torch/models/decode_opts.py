@@ -11,8 +11,10 @@ On a CUDA tensor :func:`fused_epilogue` launches the hand-written kernel
 ``csrc/epilogue.cu``, which replaces the TPU kernel ``_pallas_epilogue``
 (``_pallas_epilogue_kernel``); on a CPU tensor it takes the plain version
 :func:`fused_epilogue_reference`.  A CUDA tensor never takes the plain
-version.  What bounds the kernel on the card: memory (6 bytes a sample);
-its design is described in the source.
+version.  What bounds the kernel on the card: memory (6 bytes a sample),
+and at batch 1 the latency of the loads, so one thread-block cluster of up
+to 8 blocks shares each row (:func:`epilogue_plan`); its design is
+described in the source.
 
 ``SONATA_FUSED_EPILOGUE`` selects ``fused`` (the default: this epilogue)
 or ``off`` (the host-side slice + :meth:`AudioSamples.crossfade`, which only
@@ -76,9 +78,53 @@ def fused_epilogue_reference(wav: torch.Tensor, lo: torch.Tensor,
     mask = ((idx >= lo) & (idx < hi)).to(torch.float32)
     tapered = wav * (in_gain * out_gain * mask)
     peak = torch.amax(torch.abs(tapered), dim=-1)
-    scale = 32767.0 / torch.clamp(peak, min=0.01)[:, None]
+    floor = torch.clamp(peak, min=0.01)[:, None]
+    # a true division, as the reference's: ``32767.0 / tensor`` would be
+    # ``reciprocal(tensor) * 32767``, an ulp off for about a quarter of peaks
+    scale = torch.full_like(floor, 32767.0) / floor
     q = torch.clamp(tapered * scale, -32768.0, 32767.0).to(torch.int16)
     return q, peak
+
+
+#: the portable thread-block cluster size: the most blocks sharing a row
+EPILOGUE_MAX_CLUSTER = 8
+#: a row gets one block per this many samples, up to the cluster's size
+EPILOGUE_BLOCK_SAMPLES = 2048
+#: the longest fade the kernel's gain table holds (the port's is 42)
+EPILOGUE_MAX_FADE = 1024
+
+
+def epilogue_plan(b: int, s: int):
+    """The kernel's launch for ``wav [b, s]``, a function of the shape only:
+    ``(c, lv, grid)`` with ``c`` blocks in each row's cluster, ``lv`` float4
+    vectors in each block's slice, and the grid ``(c, b)``."""
+    c = max(1, min(EPILOGUE_MAX_CLUSTER, -(-s // EPILOGUE_BLOCK_SAMPLES)))
+    vectors = -(-s // 4)
+    return c, -(-vectors // c), (c, b)
+
+
+def epilogue_slices(s: int, c: int, lv: int, head: int = 0,
+                    vector: bool = True):
+    """The samples each block of a row's cluster takes in the kernel, as a
+    list of ``[(start, stop), ...]`` ranges per rank.
+
+    In vector mode (the row's wav and q start at the same place within a
+    vector) rank ``k`` takes vectors ``[k·lv, (k+1)·lv)`` of those that
+    follow the row's ``head`` samples before its first 16-byte boundary, and
+    rank 0 also takes the head and the tail after the last whole vector.
+    Otherwise rank ``k`` takes samples ``[4k·lv, 4(k+1)·lv)``."""
+    if not vector:
+        return [[(min(4 * k * lv, s), min(4 * (k + 1) * lv, s))]
+                for k in range(c)]
+    head = min(head, s)
+    nv = (s - head) // 4
+    slices = []
+    for k in range(c):
+        v0 = min(k * lv, nv)
+        v1 = min(v0 + lv, nv)
+        slices.append([(head + 4 * v0, head + 4 * v1)])
+    slices[0] += [(0, head), (head + 4 * nv, s)]
+    return slices
 
 
 def fused_epilogue(wav: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -102,14 +148,19 @@ def fused_epilogue(wav: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             raise OperationError(
                 f"fused_epilogue: expected int32 {name} [{b}] on "
                 f"{wav.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if fade > EPILOGUE_MAX_FADE:
+        raise OperationError(f"fused_epilogue: fade {fade} exceeds the "
+                             f"kernel's {EPILOGUE_MAX_FADE} samples")
     wav, lo, hi = wav.contiguous(), lo.contiguous(), hi.contiguous()
+    cluster, lv, _ = epilogue_plan(b, s)
     q = torch.empty((b, s), dtype=torch.int16, device=wav.device)
     peak = torch.empty((b,), dtype=torch.float32, device=wav.device)
     from ..ops._build import check, library, stream_of
 
     rc = library().sonata_epilogue_f32(
         wav.data_ptr(), lo.data_ptr(), hi.data_ptr(), q.data_ptr(),
-        peak.data_ptr(), b, s, int(fade), wav.device.index, stream_of(wav))
+        peak.data_ptr(), b, s, int(fade), cluster, lv, wav.device.index,
+        stream_of(wav))
     check(rc, "fused_epilogue")
     fused_epilogue.launches += 1
     return q, peak

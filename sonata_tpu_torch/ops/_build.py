@@ -52,11 +52,11 @@ def find_nvcc() -> str:
     raise OperationError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build_key() -> str:
+def _build_key(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -69,9 +69,10 @@ def _run(cmd: list[str]) -> str:
     return proc.stdout + proc.stderr
 
 
-def build() -> Path:
-    """Return the path of the built library, building it if needed."""
-    out_dir = BUILD_ROOT / _build_key()
+def build(csrc: Path = CSRC) -> Path:
+    """Return the path of the library built from ``csrc`` (the package's
+    sources unless another tree's are given), building it if needed."""
+    out_dir = BUILD_ROOT / _build_key(csrc)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         build_info.setdefault("seconds", 0.0)
@@ -87,7 +88,7 @@ def build() -> Path:
         objs = [out_dir / (Path(s).stem + ".o") for s in SOURCES]
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             logs = list(pool.map(
-                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(CSRC / so[0]),
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(csrc / so[0]),
                                  "-o", str(so[1])]),
                 zip(SOURCES, objs)))
         tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
@@ -107,9 +108,14 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sonata_gate_f32.argtypes = [p, p, p, i, i, i, i, p]
+            # gate: y, g, g row stride, out, B, T, H, device, stream
+            lib.sonata_gate_f32.argtypes = [p, p, ctypes.c_int64, p, i, i, i,
+                                            i, p]
             lib.sonata_gate_f32.restype = i
-            lib.sonata_epilogue_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            # epilogue: wav, lo, hi, q, peak, B, S, fade, cluster size,
+            # vectors a block, device, stream
+            lib.sonata_epilogue_f32.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                i, p]
             lib.sonata_epilogue_f32.restype = i
             lib.sonata_cuda_error_string.argtypes = [i]
             lib.sonata_cuda_error_string.restype = ctypes.c_char_p

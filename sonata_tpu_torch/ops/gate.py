@@ -10,11 +10,12 @@ the card to the plain version: a CUDA tensor the kernel cannot take raises.
 What bounds it on the card: memory.  A row of the ``[rows, 2H]``
 pre-activation costs 12·H bytes (read 2H floats, write H); the
 transcendentals are a few operations per byte.  The kernel therefore makes
-one streaming pass, coalesced in the channels-first layout the port's
-``wn`` holds, and folds the broadcast ``g`` add into its loads rather than
-paying a separate ``x + g`` pass.  At Piper widths one call moves about a megabyte, so launch
-latency dominates; fusing the gate into the WaveNet layer is the way to a
-faster one.
+one streaming pass in 16-byte vectors, one vector of one channel row a
+thread, in the channels-first layout the port's ``wn`` holds, and folds the
+broadcast ``g`` add into its loads, reading ``g`` in place through its row
+stride (``wn`` passes one layer's slice of the stacked conditioning).  Its
+design is described in the source.  Fusing the gate into the WaveNet layer
+is later performance work (``ROADMAP.md`` §3).
 """
 
 from __future__ import annotations
@@ -57,19 +58,22 @@ def fused_gate(x: torch.Tensor,
             "[B, 2H, T] tensor")
     out = torch.empty((b, hidden, t), dtype=x.dtype,
                       device=x.device).transpose(1, 2)
-    g_ptr = None
+    g_ptr, g_stride = None, 0
     if g is not None:
         if (g.dtype != torch.float32 or g.device != x.device
-                or tuple(g.shape) != (b, 1, two_h)):
+                or tuple(g.shape) != (b, 1, two_h)
+                or (two_h > 1 and g.stride(2) != 1)):
             raise OperationError(
-                f"fused_gate: expected float32 g [{b}, 1, {two_h}] on "
-                f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
-        g = g.reshape(b, two_h).contiguous()
-        g_ptr = g.data_ptr()
+                f"fused_gate: expected float32 g [{b}, 1, {two_h}] with unit "
+                f"channel stride on {x.device}, got {g.dtype} "
+                f"{tuple(g.shape)} strides {g.stride()} on {g.device}")
+        # read in place: g[b, 0, c] is at g_ptr + b * g_stride + c
+        g_ptr, g_stride = g.data_ptr(), g.stride(0)
     from ._build import check, library, stream_of
 
-    rc = library().sonata_gate_f32(x.data_ptr(), g_ptr, out.data_ptr(), b, t,
-                                   hidden, x.device.index, stream_of(x))
+    rc = library().sonata_gate_f32(x.data_ptr(), g_ptr, g_stride,
+                                   out.data_ptr(), b, t, hidden,
+                                   x.device.index, stream_of(x))
     check(rc, "fused_gate")
     fused_gate.launches += 1
     return out

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing in ``sonata_tpu_torch/`` or in
-``chip_smoke.py`` imports jax or the JAX package.
+``chip_smoke.py`` (nor ``tools/torch_kernel_ab.py``, which runs beside it
+on the card) imports jax or the JAX package.
 
 jax is checked by an AST scan, not through ``sys.modules``: a host may
 import jax at interpreter start-up on its own.  The JAX package is checked
@@ -18,7 +19,8 @@ PORT = REPO / "sonata_tpu_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "torch_kernel_ab.py"]
 
 
 def _imported_modules(path: Path):
