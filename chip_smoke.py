@@ -27,8 +27,32 @@ exits non-zero; nothing is caught):
 4. profile  — the same file and stream under ``torch.profiler``: wall time,
               device-busy time and idle share, kernel launches, and the
               kernels that take the most device time.
-5. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at fixed check shapes that reach
+5. import   — the medium voice of phase 2, its zero-init layers filled the
+              same way, written as ``voice.pt`` (the upstream state-dict
+              naming, ``import_torch.params_to_state_dict``) beside a
+              ``voice.onnx.json`` and loaded with
+              ``PiperVoice.from_config_path`` on the card: the load time,
+              and the phase-2 file from it and from a directly built voice
+              (both fresh, same noise) must be identical, sample for sample.
+6. tashkeel — two diacritizers on the card, each on a ~220-character
+              Arabic text and on one longer than the CBHG's ``max_len``
+              (315): the bundled tagger at its real weights, and a CBHG at
+              the widths of the public CBHG configuration of libtashkeel's
+              model family (``almodhfer/diacritization``,
+              ``config/cbhg.yml``: embedding 256, bank K = 16, projections
+              (128, 256), bi-GRU 256, one post bi-LSTM 256), random weights
+              from ``tests/torch_cbhg.py``.  Logits on the card within 1e-4
+              of the CPU port's, the classes equal wherever the top-2
+              margin exceeds that, the strings identical; wall and device
+              time and device events of one ``diacritize`` call.
+7. arabic   — a medium voice with ``espeak.voice = "ar"`` over the default
+              phoneme map (it covers every Arabic symbol the rules emit)
+              with the bundled tagger as its engine: a 3-sentence text with
+              digits to a WAV file and one streamed sentence, counted as in
+              phase 2 (gate 16 per acoustics call, epilogue once a window),
+              and each sentence against the CPU port as in phase 3.
+8. kernels  — each kernel against its plain PyTorch version on the card, at
+              the main and Arabic paths' shapes and at fixed check shapes that reach
               the kernels' edges (ragged and misaligned rows, a strided
               ``g``, slice boundaries inside fades).  Each is timed three
               ways: ``device_ms``, the kernel's own device time per call
@@ -41,7 +65,7 @@ exits non-zero; nothing is caught):
               over ``device_ms``.  The ``kernels`` line times each kernel
               at the main path's most frequent shape; its ``ms`` and
               ``plain_ms`` are device times per call.
-6. the ``{"kernels": [...]}`` line, the card line, and last
+9. the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -49,6 +73,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import statistics
@@ -67,6 +92,16 @@ TEXT = ("The quick brown fox jumps over the lazy dog. "
         "time. A GPU runs every stage of the voice.")
 STREAM_TEXT = ("This sentence is streamed in chunks, and each chunk ends in "
                "the fused taper and quantize epilogue.")
+AR_TEXT = ("ذهب الولد إلى المدرسة في الصباح الباكر، وقرأ 3 كتب عن تاريخ "
+           "المدن العربية القديمة. ثم عاد إلى البيت في الساعة 12 ظهرا، "
+           "وتناول الغداء مع أسرته الكبيرة. وفي المساء كتب رسالة طويلة إلى "
+           "صديقه الذي يسكن في مدينة بعيدة منذ 1998.")
+AR_STREAM_TEXT = ("وفي المساء كتب الولد رسالة طويلة إلى صديقه الذي يسكن في "
+                  "مدينة بعيدة، وقرأها على أسرته 2 مرات.")
+#: the CBHG widths of almodhfer/diacritization, config/cbhg.yml
+CBHG_WIDTHS = dict(emb=256, K=16, projections=(128, 256), gru_units=256,
+                   lstm_units=256)
+TASHKEEL_TOL = 1e-4
 
 
 def require(ok: bool, what) -> None:
@@ -267,6 +302,84 @@ def check_epilogue(torch, dop, wav, lo, hi):
     return int(lsb.max()), n_diff, float(peak_err)
 
 
+def gpu_cpu_parity(torch, voice, cpu_voice, ids) -> dict:
+    """One sentence's ids through the CPU port and the card on the same
+    weights and noise, the GPU acoustics fed the CPU's durations; the
+    waveforms must agree within 1e-3 of the CPU waveform's peak (cuDNN and
+    the CPU order float32 sums differently)."""
+    from sonata_tpu_torch.models import piper, vits
+    from sonata_tpu_torch.utils.buckets import FRAME_BUCKETS, bucket_for
+
+    hp = voice.hp
+    with torch.inference_mode():
+        outs = {}
+        for name, v in (("cpu", cpu_voice), ("gpu", voice)):
+            tok, lens, b, t = v._pad_batch([ids])
+            dur = vits.per_row_normal(0, 1, piper.DUR_NOISE, (b, t, 2))
+            outs[name] = vits.encode_text(
+                v.model, hp, tok, lens, dur.to(v.device), noise_w=0.8,
+                length_scale=1.0)
+        m_p, logs_p, w_ceil, x_mask, _ = outs["cpu"]
+        flips = int((outs["gpu"][2].cpu() != w_ceil).sum())
+        f = bucket_for(int(w_ceil.sum()), FRAME_BUCKETS)
+        prior = vits.per_row_normal(0, 1, piper.PRIOR_NOISE,
+                                    (1, f, hp.inter_channels))
+        wavs = {}
+        for name, v, dev in (("cpu", cpu_voice, "cpu"),
+                             ("gpu", voice, voice.device)):
+            mp_, lp_ = outs[name][0], outs[name][1]
+            z, _, _ = vits.acoustics(
+                v.model, hp, mp_, lp_, w_ceil.to(dev), x_mask.to(dev),
+                prior.to(dev), noise_scale=0.667, max_frames=f)
+            wavs[name] = vits.decode_with(v.model, hp, z).cpu()
+    diff = float((wavs["gpu"] - wavs["cpu"]).abs().max())
+    peak = float(wavs["cpu"].abs().max())
+    tolerance = 1e-3 * peak  # relative to the waveform's peak
+    return {"frames": int(w_ceil.sum()), "frame_bucket": f,
+            "w_ceil_flips": flips, "peak": peak, "max_abs_diff": diff,
+            "max_rel_diff": diff / peak, "tolerance": tolerance,
+            "tolerance_rel": 1e-3,
+            "ok": peak > 0 and math.isfinite(diff) and diff <= tolerance}
+
+
+def check_diacritizer(torch, gpu, cpu, texts, strip) -> dict:
+    """A diacritizer on the card against the same model on the CPU:
+    logits within :data:`TASHKEEL_TOL`, the classes equal wherever the
+    CPU's top-2 margin exceeds it, the strings identical; then the wall
+    time (median of 5 calls) and, under the profiler, the device time and
+    device events of one ``diacritize`` call of the first text."""
+    err, near_ties, flipped, chars = 0.0, 0, 0, 0
+    for text in texts:
+        base = strip(text)
+        pieces = gpu.chunks(base) if hasattr(gpu, "chunks") else [base]
+        for piece in (p for p in pieces if p.strip()):
+            g = gpu.logits(piece).cpu()
+            c = cpu.logits(piece)
+            err = max(err, float((g - c).abs().max()))
+            top2 = c.topk(2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > TASHKEEL_TOL
+            near_ties += int((~decided).sum())
+            flipped += int(((g.argmax(-1) != c.argmax(-1)) & decided).sum())
+            chars += len(piece)
+        require(gpu.diacritize(text) == cpu.diacritize(text),
+                ("diacritized strings differ", text[:40]))
+    require(err <= TASHKEEL_TOL and flipped == 0,
+            ("diacritizer logits", err, flipped))
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        gpu.diacritize(texts[0])  # ends in the classes' copy to the host
+        walls.append(time.perf_counter() - t0)
+    prof = profile_run(torch, lambda: gpu.diacritize(texts[0]))
+    return {"chars": chars, "max_abs_err": err, "tolerance": TASHKEEL_TOL,
+            "near_ties": near_ties, "classes_flipped": flipped,
+            "strings_identical": True,
+            "wall_ms": statistics.median(walls) * 1e3,
+            "device_ms": prof["device_busy_s"] * 1e3,
+            "device_events": prof["device_events"],
+            "profiled_wall_ms": prof["wall_s"] * 1e3, "top": prof["top"][:4]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -280,7 +393,13 @@ def main() -> int:
     from sonata_tpu_torch.ops import _build, gate
     from sonata_tpu_torch.synth import SpeechSynthesizer
     from sonata_tpu_torch.audio import read_wave_file
-    from sonata_tpu_torch.utils.buckets import FRAME_BUCKETS, bucket_for
+    from sonata_tpu_torch.models.import_torch import params_to_state_dict
+    from sonata_tpu_torch.models.tashkeel import (
+        _DEFAULT_VOCAB, strip_diacritics)
+    from sonata_tpu_torch.models.tashkeel_cbhg import (
+        TashkeelCBHGModel, state_dict_to_cbhg)
+    from sonata_tpu_torch.models.weights import params_to_numpy
+    from sonata_tpu_torch.text.tashkeel import BUNDLED_MODEL, TashkeelEngine
 
     gpu = card()
     # -- 1. env ---------------------------------------------------------------
@@ -355,6 +474,7 @@ def main() -> int:
                 "fused_epilogue": dop.fused_epilogue.launches}
     vits.acoustics = acoustics
     piper.PiperVoice._decode_window = decode_window
+    main_gate_shapes, main_epi_shapes = list(gate_shapes), list(epi_shapes)
 
     n_wn = hp.flow_n_layers * hp.flow_wn_layers
     require(launches["fused_gate"] == n_wn * aco_calls[0] > 0,
@@ -384,36 +504,9 @@ def main() -> int:
     cpu_voice = PiperVoice.random(seed=0, device="cpu")
     fill_zero_init(torch, cpu_voice.model, seed=1)
     ids = voice._encode_phonemes(voice.phonemize_text(STREAM_TEXT)[0])
-    with torch.inference_mode():
-        outs = {}
-        for name, v in (("cpu", cpu_voice), ("gpu", voice)):
-            tok, lens, b, t = v._pad_batch([ids])
-            dur = vits.per_row_normal(0, 1, piper.DUR_NOISE, (b, t, 2))
-            outs[name] = vits.encode_text(
-                v.model, hp, tok, lens, dur.to(v.device), noise_w=0.8,
-                length_scale=1.0)
-        m_p, logs_p, w_ceil, x_mask, _ = outs["cpu"]
-        flips = int((outs["gpu"][2].cpu() != w_ceil).sum())
-        f = bucket_for(int(w_ceil.sum()), FRAME_BUCKETS)
-        prior = vits.per_row_normal(0, 1, piper.PRIOR_NOISE,
-                                    (1, f, hp.inter_channels))
-        wavs = {}
-        for name, v, dev in (("cpu", cpu_voice, "cpu"),
-                             ("gpu", voice, voice.device)):
-            mp_, lp_ = outs[name][0], outs[name][1]
-            z, _, _ = vits.acoustics(
-                v.model, hp, mp_, lp_, w_ceil.to(dev), x_mask.to(dev),
-                prior.to(dev), noise_scale=0.667, max_frames=f)
-            wavs[name] = vits.decode_with(v.model, hp, z).cpu()
-    diff = float((wavs["gpu"] - wavs["cpu"]).abs().max())
-    peak = float(wavs["cpu"].abs().max())
-    tolerance = 1e-3 * peak  # relative to the waveform's peak
-    emit({"phase": "parity", "card": gpu, "frames": int(w_ceil.sum()),
-          "frame_bucket": f, "w_ceil_flips": flips, "peak": peak,
-          "max_abs_diff": diff, "max_rel_diff": diff / peak,
-          "tolerance": tolerance, "tolerance_rel": 1e-3})
-    require(peak > 0 and math.isfinite(diff) and diff <= tolerance,
-            ("gpu vs cpu", diff, peak))
+    parity = gpu_cpu_parity(torch, voice, cpu_voice, ids)
+    emit({"phase": "parity", "card": gpu, **parity})
+    require(parity.pop("ok"), ("gpu vs cpu", parity))
 
     # -- 4. where the time goes ------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -425,7 +518,155 @@ def main() -> int:
     emit({"phase": "profile", "card": gpu, "file": file_prof,
           "stream": stream_prof})
 
-    # -- 5. kernels against their plain versions --------------------------------
+    # -- 5. a voice loaded from a torch checkpoint ------------------------------
+    direct = PiperVoice.random(seed=0)
+    fill_zero_init(torch, direct.model, seed=1)
+    state = params_to_state_dict(params_to_numpy(direct.model), direct.hp)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in state.items()}, tmp / "voice.pt")
+        config = {"audio": {"sample_rate": 22050, "quality": "medium"},
+                  "num_speakers": 1, "espeak": {"voice": "en-us"},
+                  "num_symbols": direct.config.num_symbols,
+                  "phoneme_id_map": direct.config.phoneme_id_map}
+        (tmp / "voice.onnx.json").write_text(json.dumps(config),
+                                            encoding="utf-8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = PiperVoice.from_config_path(tmp / "voice.onnx.json")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        wavs = {}
+        for name, v in (("direct", direct), ("loaded", loaded)):
+            SpeechSynthesizer(v).synthesize_to_file(tmp / f"{name}.wav", TEXT)
+            wavs[name] = read_wave_file(tmp / f"{name}.wav")[0]
+        file_mb = (tmp / "voice.pt").stat().st_size / 2 ** 20
+    n_params = sum(p.numel() for p in loaded.model.parameters())
+    same_shape = wavs["loaded"].shape == wavs["direct"].shape
+    import_diff = (int(np.abs(wavs["loaded"].astype(np.int32)
+                              - wavs["direct"].astype(np.int32)).max())
+                   if same_shape else None)
+    emit({"phase": "import", "card": gpu, "format": "pt",
+          "tensors": len(state), "params": n_params, "file_mb": file_mb,
+          "load_s": load_s, "samples": int(wavs["loaded"].size),
+          "max_abs_diff": import_diff})
+    require(same_shape and wavs["loaded"].size > 0 and import_diff == 0,
+            ("imported voice's WAV differs", import_diff))
+    del direct, loaded
+
+    # -- 6. the two diacritizers on the card -----------------------------------
+    ar_long = " ".join([AR_TEXT] * 3)  # longer than the CBHG's max_len
+    tagger = {dev: TashkeelEngine(str(BUNDLED_MODEL), device=dev)
+              for dev in (None, "cpu")}
+    # the torch mirror of the CBHG family, loaded from its file: the
+    # card's host may have a ``tests`` package of its own
+    spec = importlib.util.spec_from_file_location(
+        "torch_cbhg", Path(__file__).resolve().parent / "tests"
+        / "torch_cbhg.py")
+    torch_cbhg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_cbhg)
+    torch.manual_seed(0)
+    mirror = torch_cbhg.CBHGTagger(n_vocab=len(_DEFAULT_VOCAB) + 1,
+                                   **CBHG_WIDTHS).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # inference BatchNorm statistics to fold
+        for bn in (m for m in mirror.modules()
+                   if isinstance(m, torch.nn.BatchNorm1d)):
+            bn.running_mean.copy_(torch.randn(bn.num_features,
+                                              generator=gen) * 0.1)
+            bn.running_var.copy_(torch.rand(bn.num_features,
+                                            generator=gen) + 0.5)
+    cbhg_tree = state_dict_to_cbhg(
+        {k: v.numpy() for k, v in mirror.state_dict().items()})
+    cbhg = {dev: TashkeelCBHGModel(cbhg_tree, device=dev)
+            for dev in (None, "cpu")}
+    require(len(ar_long) > cbhg[None].max_len > len(AR_TEXT),
+            "text lengths")
+    models = {"tagger": (tagger[None].model, tagger["cpu"].model),
+              "cbhg": (cbhg[None], cbhg["cpu"])}
+    require(all(e.has_model for e in tagger.values()), "tagger not loaded")
+    tashkeel = {}
+    for name, (gpu_model, cpu_model) in models.items():
+        gpu_model.diacritize(AR_TEXT)  # warm cuDNN and the allocator
+        tashkeel[name] = {
+            "params": sum(p.numel() for p in gpu_model.module.parameters()),
+            **check_diacritizer(torch, gpu_model, cpu_model,
+                                [AR_TEXT, ar_long], strip_diacritics)}
+    emit({"phase": "tashkeel", "card": gpu, "text_chars": len(AR_TEXT),
+          "long_chars": len(ar_long), "cbhg_widths": CBHG_WIDTHS,
+          "cbhg_vocab": len(_DEFAULT_VOCAB) + 1, **tashkeel})
+    del cbhg, mirror
+
+    # -- 7. an Arabic voice through the diacritizer ------------------------------
+    ar_voice = PiperVoice.random(seed=0, tashkeel=tagger[None],
+                                 espeak={"voice": "ar"})
+    fill_zero_init(torch, ar_voice.model, seed=1)
+    ar_synth = SpeechSynthesizer(ar_voice)
+    list(ar_synth.synthesize_parallel("مرحبا بالعالم."))
+    list(ar_synth.synthesize_streamed("مرحبا بالعالم العربي.",
+                                      chunk_size=45, chunk_padding=3))
+    torch.cuda.synchronize()
+    vits.acoustics = counted_acoustics
+    piper.PiperVoice._decode_window = recorded_window
+    gate_shapes.clear()
+    epi_shapes.clear()
+    aco_calls[0] = 0
+    gate.fused_gate.launches = 0
+    dop.fused_epilogue.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ar_synth.synthesize_to_file(Path(tmp) / "ar.wav", AR_TEXT)
+        torch.cuda.synchronize()
+        ar_file_s = time.perf_counter() - t0
+        ar_samples, ar_rate, _ = read_wave_file(Path(tmp) / "ar.wav")
+    t0 = time.perf_counter()
+    ar_first_s, ar_chunks = None, []
+    for chunk in ar_synth.synthesize_streamed(AR_STREAM_TEXT, chunk_size=45,
+                                              chunk_padding=3):
+        if ar_first_s is None:
+            ar_first_s = time.perf_counter() - t0
+        ar_chunks.append(chunk.samples.data)
+    ar_stream_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ar_launches = {"fused_gate": gate.fused_gate.launches,
+                   "fused_epilogue": dop.fused_epilogue.launches}
+    ar_aco = aco_calls[0]
+    vits.acoustics = acoustics
+    piper.PiperVoice._decode_window = decode_window
+    require(ar_launches["fused_gate"] == n_wn * ar_aco > 0,
+            (ar_launches, ar_aco))
+    require(ar_launches["fused_epilogue"] == len(ar_chunks) > 0,
+            (ar_launches, len(ar_chunks)))
+    ar_stream = np.concatenate(ar_chunks)
+    require(ar_rate == 22050 and np.abs(ar_samples).max() > 0, "Arabic WAV")
+    require(bool(np.isfinite(ar_stream).all())
+            and np.abs(ar_stream).max() > 0, "Arabic stream")
+    cpu_ar_voice = PiperVoice.random(seed=0, device="cpu",
+                                     tashkeel=tagger["cpu"],
+                                     espeak={"voice": "ar"})
+    fill_zero_init(torch, cpu_ar_voice.model, seed=1)
+    sentences = ar_voice.phonemize_text(AR_TEXT).sentences
+    require(sentences == cpu_ar_voice.phonemize_text(AR_TEXT).sentences,
+            "Arabic phonemes differ between the card and the CPU")
+    ar_parity = [gpu_cpu_parity(torch, ar_voice, cpu_ar_voice,
+                                ar_voice._encode_phonemes(sentence))
+                 for sentence in sentences]
+    emit({"phase": "arabic", "card": gpu, "width": "medium",
+          "sentences": len(sentences),
+          "symbols_dropped": ar_voice.drop_stats["symbols_dropped"],
+          "acoustics_calls": ar_aco, "launches": ar_launches,
+          "file_wall_s": ar_file_s,
+          "file_audio_s": ar_samples.size / ar_rate,
+          "file_rtf": ar_file_s / (ar_samples.size / ar_rate),
+          "stream_wall_s": ar_stream_s,
+          "stream_audio_s": ar_stream.size / ar_rate,
+          "stream_rtf": ar_stream_s / (ar_stream.size / ar_rate),
+          "first_chunk_s": ar_first_s, "chunks": len(ar_chunks),
+          "parity": ar_parity})
+    require(all(r["ok"] for r in ar_parity), ("Arabic gpu vs cpu", ar_parity))
+
+    # -- 8. kernels against their plain versions --------------------------------
     tiny = torch.empty(1, device="cuda")
     floor_ms = device_ms(torch, tiny.zero_)
     require(floor_ms is not None, "no device time recorded for zero_()")
@@ -435,7 +676,8 @@ def main() -> int:
     # it) and fixed check shapes: T % 4 == 1 and 2, x at a storage offset,
     # g dense and strided
     gate_cases = [(shape, "strided" if with_g else None, 0)
-                  for shape, with_g in sorted(set(gate_shapes))]
+                  for shape, with_g in sorted(set(main_gate_shapes
+                                                  + gate_shapes))]
     gate_cases += [((4, 512, 384), "dense", 0), ((4, 384, 384), "strided", 0),
                    ((2, 37, 48), "dense", 0), ((2, 37, 48), None, 0),
                    ((2, 38, 48), "strided", 0), ((2, 38, 48), None, 0),
@@ -450,7 +692,7 @@ def main() -> int:
               **timings(torch, lambda: gate.fused_gate(x, g), "gate_kernel",
                         gate_bound(shape, g is not None)[0], floor_ms)})
     # time at the main path's most frequent shape
-    shape, with_g = Counter(gate_shapes).most_common(1)[0][0]
+    shape, with_g = Counter(main_gate_shapes).most_common(1)[0][0]
     x, g = gate_inputs(torch, shape, "strided" if with_g else None, seed=99)
     kernel = lambda: gate.fused_gate(x, g)  # noqa: E731
     plain = lambda: gate.fused_gate_reference(  # noqa: E731
@@ -482,7 +724,7 @@ def main() -> int:
                  (1, 256, [(10, 250)], 0),
                  (1, 32768, [(4096 - 20, 3 * 4096 + 20)], 0),
                  (3, 4099, [(5, 4090), (2000, 2000), (100, 130)], 1)]
-    for b, s in sorted(set(epi_shapes)):
+    for b, s in sorted(set(main_epi_shapes + epi_shapes)):
         epi_cases.append((b, s, [(3 * 256, s - 3 * 256)] * b, 0))
     epi_lsb, epi_diff, epi_peak = 0, 0, 0.0
     for i, (b, s, bounds, offset) in enumerate(epi_cases):
@@ -498,7 +740,7 @@ def main() -> int:
               **timings(torch, lambda: dop.fused_epilogue(wav, lo, hi, 42),
                         "epilogue_kernel", epilogue_bound(b, s)[0],
                         floor_ms)})
-    b, s = Counter(epi_shapes).most_common(1)[0][0]
+    b, s = Counter(main_epi_shapes).most_common(1)[0][0]
     bounds = [(3 * 256, s - 3 * 256)] * b
     wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=98)
     kernel = lambda: dop.fused_epilogue(wav, lo, hi, 42)  # noqa: E731
@@ -520,7 +762,7 @@ def main() -> int:
                  "samples_differing": epi_diff,
                  "peak_rel_err": epi_peak})
 
-    # -- 6. summary --------------------------------------------------------------
+    # -- 9. summary --------------------------------------------------------------
     emit({"kernels": rows})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ from .config import (
     VitsHyperParams,
     default_phoneme_id_map,
 )
-from .piper import PiperVoice, resolve_device
+from ..device import resolve_device
+from .piper import PiperVoice
 
 
 def from_config_path(config_path: Union[str, Path], **kwargs) -> PiperVoice:

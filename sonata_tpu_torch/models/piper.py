@@ -31,6 +31,10 @@ The device is explicit: ``device=None`` means the GPU, and a host without
 one raises :class:`OperationError` unless the caller passes
 ``device="cpu"``.  Noise comes from :attr:`PiperVoice.sampler`, by default
 the per-row generator sampler :func:`vits.per_row_normal`.
+
+Weights load from every format the JAX package reads
+(:meth:`PiperVoice.from_config_path`), and an ``ar*`` voice diacritizes
+its text before G2P (:mod:`..text.tashkeel`, on the voice's device).
 """
 
 from __future__ import annotations
@@ -52,7 +56,10 @@ from ..core import (
     OperationError,
     Phonemes,
 )
+from ..device import resolve_device
 from ..text import text_to_phonemes
+from ..text.rule_g2p import arabic_number_to_words, expand_numbers
+from ..text.tashkeel import TashkeelEngine, get_default_engine
 from ..utils.buckets import (
     BATCH_BUCKETS,
     FRAME_BUCKETS,
@@ -63,6 +70,8 @@ from ..utils.buckets import (
 from . import decode_opts, vits
 from .chunker import CROSSFADE_SAMPLES, plan_chunks
 from .config import ModelConfig, SynthesisConfig, default_phoneme_id_map
+from .import_onnx import import_onnx_weights
+from .import_torch import import_torch_checkpoint
 from .serialization import load_params
 from .weights import VitsModel, params_from_numpy, random_tree
 
@@ -70,38 +79,6 @@ from .weights import VitsModel, params_from_numpy, random_tree
 DUR_NOISE, PRIOR_NOISE = 0, 1
 
 Sampler = Callable[[int, int, tuple], torch.Tensor]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → the current CUDA device; raises when CUDA is absent.
-
-    There is no silent CPU fallback: running on the CPU is asked for with
-    ``device="cpu"``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise OperationError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the PyTorch port on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise OperationError(f"device {device!r} requested but CUDA is "
-                                 "not available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise OperationError(f"unsupported device {device!r}")
-    return dev
-
-
-def _full_float32() -> None:
-    # float32 on the card means float32: cuDNN's default runs f32
-    # convolutions in TF32 (about three decimal digits), which would break
-    # parity with the reference.  Matmuls default to full f32 already;
-    # both are pinned here.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 class PiperVoice(BaseModel):
@@ -112,10 +89,9 @@ class PiperVoice(BaseModel):
     MIN_DISPATCH_BATCH = 8
 
     def __init__(self, config: ModelConfig, params, *, device=None,
-                 seed: int = 0, sampler: Optional[Sampler] = None):
+                 seed: int = 0, sampler: Optional[Sampler] = None,
+                 tashkeel: Optional[TashkeelEngine] = None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            _full_float32()
         self.config = config
         self.hp = config.hyper
         self.fused_epilogue = decode_opts.resolve_fused_epilogue()
@@ -142,6 +118,11 @@ class PiperVoice(BaseModel):
         self.drop_stats = {"symbols_total": 0, "symbols_dropped": 0,
                            "dropped": {}}
         self._warned_drops: set = set()
+        # Arabic voices get the diacritizer automatically, on the voice's
+        # device (parity: piper/src/lib.rs:63-77)
+        self._tashkeel = tashkeel
+        if tashkeel is None and config.espeak_voice.startswith("ar"):
+            self._tashkeel = get_default_engine(device=self.device)
 
     # ------------------------------------------------------------------
     # factories
@@ -150,24 +131,52 @@ class PiperVoice(BaseModel):
     @classmethod
     def from_config_path(cls, config_path: Union[str, Path], *, device=None,
                          **kwargs) -> "PiperVoice":
-        """Load a voice from a Piper ``*.json`` config and its sidecar
-        ``<stem>.npz`` weights (the JAX package's native format).  ONNX and
-        torch-checkpoint import are not ported yet."""
+        """Load a voice from a Piper ``*.json`` config.
+
+        Weight resolution, in the JAX package's order (the reference loads
+        ``config path minus .json`` as ONNX, ``piper/src/lib.rs:98-108``):
+        the sidecar ``<stem>.npz`` (native), the ``encoder.onnx`` +
+        ``decoder.onnx`` siblings of a streaming voice, ``<stem>.onnx``,
+        then a torch checkpoint ``<stem>.pt`` / ``.ckpt`` / ``.pth``.
+        """
         device = resolve_device(device)
         config = ModelConfig.from_path(config_path)
         stem = Path(config_path)
         stem = stem.with_suffix("") if stem.suffix == ".json" else stem
-        npz = stem.with_suffix(".npz")
-        if not npz.exists():
+        n_vocab = max(config.num_symbols,
+                      1 + max((max(v) for v in config.phoneme_id_map.values()),
+                              default=0))
+        # Piper convention: "voice.onnx" + "voice.onnx.json", so the config
+        # path minus ".json" may itself be the ONNX file
+        onnx_path = stem if stem.suffix == ".onnx" else stem.with_suffix(".onnx")
+        # streaming ("rt") voice directories split the exported graph into
+        # encoder.onnx + decoder.onnx siblings of the config
+        # (piper/src/lib.rs:90-96); the two initializer sets partition the
+        # same VITS weights and merge into one tree
+        enc_path = Path(config_path).with_name("encoder.onnx")
+        dec_path = Path(config_path).with_name("decoder.onnx")
+        ckpt = next((stem.with_suffix(s) for s in (".pt", ".ckpt", ".pth")
+                     if stem.with_suffix(s).exists()), None)
+        shapes = dict(n_vocab=n_vocab, n_speakers=config.num_speakers)
+        if stem.with_suffix(".npz").exists():  # native format stays first
+            params = load_params(stem.with_suffix(".npz"))
+        elif config.streaming and enc_path.exists() and dec_path.exists():
+            params = import_onnx_weights((enc_path, dec_path), config.hyper,
+                                         **shapes)
+        elif onnx_path.exists():
+            params = import_onnx_weights(onnx_path, config.hyper, **shapes)
+        elif ckpt is not None:
+            params = import_torch_checkpoint(ckpt, config.hyper, **shapes)
+        else:
             raise FailedToLoadResource(
-                f"no weights found next to {config_path} (looked for "
-                f"{npz}; the port does not import ONNX or torch "
-                "checkpoints yet)")
-        return cls(config, load_params(npz), device=device, **kwargs)
+                f"no weights found next to {config_path} "
+                f"(looked for {stem}.npz/.onnx/.pt/.ckpt)")
+        return cls(config, params, device=device, **kwargs)
 
     @classmethod
     def random(cls, config: Optional[ModelConfig] = None, *, seed: int = 0,
-               device=None, **config_overrides) -> "PiperVoice":
+               device=None, tashkeel: Optional[TashkeelEngine] = None,
+               **config_overrides) -> "PiperVoice":
         """A randomly-initialized voice (tests, benchmarks, dry runs): the
         reference's ``init_vits`` shapes, drawn from a ``torch.Generator``
         seeded with ``seed``."""
@@ -185,7 +194,7 @@ class PiperVoice(BaseModel):
         tree = random_tree(config.hyper, n_vocab=config.num_symbols,
                            n_speakers=config.num_speakers,
                            generator=torch.Generator().manual_seed(seed))
-        return cls(config, tree, device=device, seed=seed)
+        return cls(config, tree, device=device, seed=seed, tashkeel=tashkeel)
 
     # ------------------------------------------------------------------
     # Model protocol
@@ -225,6 +234,12 @@ class PiperVoice(BaseModel):
             self._synth_config = config.copy()
 
     def phonemize_text(self, text: str) -> Phonemes:
+        # Arabic: diacritize first (piper/src/lib.rs:253-258,270-281).
+        # Digits expand to MSA number words BEFORE diacritization so the
+        # inserted words receive harakat like any other Arabic word.
+        if self._tashkeel is not None:
+            text = expand_numbers(text, arabic_number_to_words)
+            text = self._tashkeel.diacritize(text)
         return text_to_phonemes(text, voice=self.config.espeak_voice,
                                 remove_lang_switch_flags=True)
 

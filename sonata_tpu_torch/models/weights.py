@@ -97,12 +97,37 @@ def _fill(tree: ParamTree, node: dict, path: tuple) -> None:
             tree.add_module(key, child)
 
 
+def fill_tree(module: ParamTree, tree: dict) -> ParamTree:
+    """Register a reference parameter tree (numpy leaves) on ``module``,
+    key by key, in torch layouts; returns ``module``."""
+    _fill(module, tree, ())
+    return module
+
+
 def params_from_numpy(tree: dict, hp: VitsHyperParams) -> VitsModel:
     """The reference's parameter tree (numpy leaves, same nested keys) →
     a :class:`VitsModel` on the CPU.  Move it with ``.to(device)``."""
-    model = VitsModel(hp)
-    _fill(model, tree, ())
-    return model
+    return fill_tree(VitsModel(hp), tree)
+
+
+def params_to_numpy(module: nn.Module, path: tuple = ()):
+    """The inverse of :func:`params_from_numpy`: a parameter module (on
+    any device) → the reference's tree, numpy leaves in its layouts."""
+    if isinstance(module, Conv):
+        w = module.weight.detach().cpu().numpy()
+        node = {"w": np.ascontiguousarray(
+            w.transpose(2, 0, 1) if "ups" in path else w.transpose(2, 1, 0))}
+        if module.bias is not None:
+            node["b"] = module.bias.detach().cpu().numpy()
+        return node
+    if isinstance(module, nn.ModuleList):
+        return [params_to_numpy(m, path + (str(i),))
+                for i, m in enumerate(module)]
+    tree = {k: p.detach().cpu().numpy()
+            for k, p in module.named_parameters(recurse=False)}
+    for key, child in module.named_children():
+        tree[key] = params_to_numpy(child, path + (key,))
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Text front-end: segmentation and G2P phonemization (English rules)."""
+"""Text front-end: segmentation, G2P phonemization, Arabic diacritization."""
 
 from .phonemizer import (
     EspeakBackend,

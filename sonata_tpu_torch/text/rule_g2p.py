@@ -1,4 +1,4 @@
-"""Hermetic rule-based grapheme→IPA fallback backend (English).
+"""Hermetic rule-based grapheme→IPA fallback backend.
 
 The reference depends unconditionally on a patched eSpeak-ng C library plus
 ~100 compiled dictionary files vendored in-tree
@@ -8,9 +8,8 @@ good enough for tests, benchmarks, and development.  Production deployments
 use the eSpeak backend (:class:`.phonemizer.EspeakBackend`) when
 libespeak-ng is installed.
 
-This is the PyTorch port's own copy of the JAX package's rule backend, cut
-to its English pack: the registry holds ``"en"`` alone, and every other
-language code is refused like an unknown one.
+The registry (:data:`_LANGUAGES`) and every language pack
+(``rule_g2p_*.py``) are the port's own copies of the JAX package's.
 
 Output is genuine IPA over the same symbol inventory Piper voices use in
 their ``phoneme_id_map`` (config JSON next to each voice), so phoneme-id
@@ -116,12 +115,24 @@ def _stress_stem_last(ipa: str) -> str:
                 onset -= 1
     return ipa[:onset] + "ˈ" + ipa[onset:]
 
-
 _ONES = ["zero", "one", "two", "three", "four", "five", "six", "seven",
          "eight", "nine", "ten", "eleven", "twelve", "thirteen", "fourteen",
          "fifteen", "sixteen", "seventeen", "eighteen", "nineteen"]
 _TENS = ["", "", "twenty", "thirty", "forty", "fifty", "sixty", "seventy",
          "eighty", "ninety"]
+
+# -- Arabic letters → IPA (MSA, broad) --------------------------------------
+_ARABIC = {
+    "ا": "aː", "ب": "b", "ت": "t", "ث": "θ", "ج": "dʒ", "ح": "ħ", "خ": "x",
+    "د": "d", "ذ": "ð", "ر": "r", "ز": "z", "س": "s", "ش": "ʃ", "ص": "sˤ",
+    "ض": "dˤ", "ط": "tˤ", "ظ": "ðˤ", "ع": "ʕ", "غ": "ɣ", "ف": "f",
+    "ق": "q", "ك": "k", "ل": "l", "م": "m", "ن": "n", "ه": "h", "و": "w",
+    "ي": "j", "ء": "ʔ", "ى": "aː", "ة": "a", "أ": "ʔa", "إ": "ʔi",
+    "آ": "ʔaː", "ؤ": "ʔ", "ئ": "ʔ",
+    # diacritics (possibly inserted by the tashkeel stage)
+    "َ": "a", "ُ": "u", "ِ": "i", "ّ": "ː",
+    "ً": "an", "ٌ": "un", "ٍ": "in", "ْ": "",
+}
 
 
 def number_to_words(n: int) -> str:
@@ -142,9 +153,81 @@ def number_to_words(n: int) -> str:
     return number_to_words(m) + " million" + (" " + number_to_words(r) if r else "")
 
 
+def epenthesize_runs(units: list, flags: list, *, vowel: str = "e",
+                     final_cluster_ok=None) -> str:
+    """Break consonant runs with an epenthetic vowel — shared by the
+    unvocalized-script packs (Persian/Urdu, Hebrew), whose scripts drop
+    short vowels entirely.
+
+    Policy: no initial clusters (the run's first consonant takes the
+    epenthetic vowel: سلام → selɒːm, שלום → ʃelom); word-internal and
+    final runs keep up to two consonants unless ``final_cluster_ok``
+    (a predicate over the final run) rejects them; longer runs break
+    before their last member.
+    """
+    if final_cluster_ok is None:
+        final_cluster_ok = lambda run: True  # noqa: E731
+    out: list[str] = []
+    i = 0
+    n = len(units)
+    while i < n:
+        if flags[i]:
+            out.append(units[i])
+            i += 1
+            continue
+        j = i
+        while j < n and not flags[j]:
+            j += 1
+        run = units[i:j]
+        at_end = j == n
+        if i == 0 and len(run) >= 2:
+            out.append(run[0])
+            out.append(vowel)
+            run = run[1:]
+        if len(run) >= 2 and (len(run) > 2 or
+                              (at_end and not final_cluster_ok(run))):
+            out.extend(run[:-1])
+            out.append(vowel)
+            out.append(run[-1])
+        else:
+            out.extend(run)
+        i = j
+    return "".join(out)
+
+
+def south_asian_number_words(num: int, *, ones: list, tens: dict,
+                             hundred: str, thousand: str, lakh: str,
+                             minus: str) -> str:
+    """Shared analytic numeral skeleton for the lakh-system languages
+    (Nepali, Hindi): exact 0-20, tens + ones, hundreds, thousands,
+    lakhs.  Real usage fuses 21-99 irregularly — that needs the
+    dictionaries eSpeak carries; analytic stays intelligible."""
+    def words(n: int) -> str:
+        if n <= 20:
+            return ones[n]
+        if n < 100:
+            t, o = divmod(n, 10)
+            return tens[t] + (" " + ones[o] if o else "")
+        if n < 1000:
+            h, r = divmod(n, 100)
+            head = ones[h] + " " + hundred
+            return head + (" " + words(r) if r else "")
+        if n < 100_000:
+            k, r = divmod(n, 1000)
+            head = words(k) + " " + thousand
+            return head + (" " + words(r) if r else "")
+        lk, r = divmod(n, 100_000)
+        head = words(lk) + " " + lakh
+        return head + (" " + words(r) if r else "")
+
+    if num < 0:
+        return minus + " " + words(-num)
+    return words(num)
+
+
 def expand_numbers(text: str, number_words) -> str:
     """Replace integer literals with ``number_words(n)`` renderings —
-    the English normalizer's last pass."""
+    shared by every language pack's normalizer."""
     def _num(m: re.Match) -> str:
         try:
             return " " + number_words(int(m.group(0))) + " "
@@ -156,7 +239,7 @@ def expand_numbers(text: str, number_words) -> str:
 
 def normalize_text(text: str) -> str:
     """Expand numeric shapes (currency, ordinals, years, decimals via the
-    English :class:`.numerics.NumberGrammar`, then bare
+    English :class:`~sonata_tpu_torch.text.numerics.NumberGrammar`, then bare
     integers), lowercase, drop symbols the G2P cannot speak."""
     from .numerics import en_grammar, expand_numerics
 
@@ -288,13 +371,211 @@ def english_word_to_ipa(word: str) -> str:
     return _default_stress(_scan_letters(word))
 
 
+def arabic_word_to_ipa(word: str) -> str:
+    return "".join(_ARABIC.get(ch, "") for ch in word)
+
+
+_AR_ONES = ["صفر", "واحد", "اثنان", "ثلاثة", "أربعة", "خمسة", "ستة",
+            "سبعة", "ثمانية", "تسعة", "عشرة"]
+_AR_TENS = ["", "عشرة", "عشرون", "ثلاثون", "أربعون", "خمسون",
+            "ستون", "سبعون", "ثمانون", "تسعون"]
+_AR_HUNDREDS = ["", "مئة", "مئتان", "ثلاثمئة", "أربعمئة", "خمسمئة",
+                "ستمئة", "سبعمئة", "ثمانمئة", "تسعمئة"]
+
+
+def arabic_number_to_words(num: int) -> str:
+    """MSA numerals: ones before tens joined with و (ثلاثة وعشرون)."""
+    if num < 0:
+        return "سالب " + arabic_number_to_words(-num)
+    if num <= 10:
+        return _AR_ONES[num]
+    if num < 20:
+        o = num - 10
+        head = "أحد" if o == 1 else ("اثنا" if o == 2 else _AR_ONES[o])
+        return head + " عشر"
+    if num < 100:
+        t, o = divmod(num, 10)
+        if o == 0:
+            return _AR_TENS[t]
+        return _AR_ONES[o] + " و" + _AR_TENS[t]
+    if num < 1000:
+        h, r = divmod(num, 100)
+        head = _AR_HUNDREDS[h]
+        return head + (" و" + arabic_number_to_words(r) if r else "")
+    if num < 1_000_000:
+        k, r = divmod(num, 1000)
+        if k == 1:
+            head = "ألف"
+        elif k == 2:
+            head = "ألفان"
+        elif k <= 10:
+            head = _AR_ONES[k] + " آلاف"
+        else:
+            head = arabic_number_to_words(k) + " ألف"
+        return head + (" و" + arabic_number_to_words(r) if r else "")
+    m, r = divmod(num, 1_000_000)
+    if m == 1:
+        head = "مليون"
+    elif m == 2:
+        head = "مليونان"  # dual, like ألفان
+    elif m <= 10:
+        head = _AR_ONES[m] + " ملايين"  # 3-10 plural
+    else:
+        head = arabic_number_to_words(m) + " مليون"
+    return head + (" و" + arabic_number_to_words(r) if r else "")
+
+
+def normalize_text_ar(text: str) -> str:
+    """Arabic normalizer: digits (ASCII or Arabic-Indic — \\d matches
+    any Unicode Nd and int() parses them) become MSA number words; the
+    generic English expansion fed the Arabic letter map English words,
+    which mapped to silence."""
+    return expand_numbers(text, arabic_number_to_words).lower()
+
+
+def place_stress(units: list, flags: list, target: int, *,
+                 liquids: tuple = ("r", "l"),
+                 stops: tuple = tuple("pbtdkɡfv"),
+                 s_cluster: bool = False,
+                 stop_at_length: bool = False) -> str:
+    """Insert the primary-stress mark before the syllable onset of the
+    nucleus at unit index ``target``.
+
+    Shared by the unit-scanner language packs (it/fr/pt/pl/tr/ro/nl):
+    ``units`` are emitted phoneme strings, ``flags`` mark vowel units, so
+    the mark can never split a multi-char phoneme.  The onset walk takes
+    every consonant unit back to the previous nucleus, then splits
+    over-long runs: an obstruent+liquid cluster (``liquids``/``stops``)
+    may start the stressed syllable, ``s_cluster`` additionally allows
+    s+stop onsets (and keeps bare word-internal s+C pairs whole), and
+    ``stop_at_length`` treats a length-marked unit (Cː geminate) as the
+    previous syllable's coda.  Word-initial clusters always stay whole.
+    """
+    onset = target
+    while onset > 0 and not flags[onset - 1]:
+        if stop_at_length and units[onset - 1].endswith("ː"):
+            break
+        onset -= 1
+    if target - onset > 1 and onset > 0:
+        run = units[onset:target]
+        if run[-1] in liquids and run[-2] in stops:
+            onset = target - 2
+        elif s_cluster and run[-1] in ("p", "t", "k") and run[-2] == "s":
+            onset = target - 2
+        elif s_cluster and run[-2] in ("s", "z") and len(run) == 2:
+            pass
+        else:
+            onset = target - 1
+    return "".join(units[:onset]) + "ˈ" + "".join(units[onset:])
+
+
+def _lazy(module: str, fn: str):
+    """Deferred accessor into a language-pack module, so importing the
+    registry never pays for packs the process doesn't use."""
+    def call(arg: str) -> str:
+        import importlib
+
+        mod = importlib.import_module(f".{module}", __package__)
+        return getattr(mod, fn)(arg)
+
+    return call
+
+
 # Language registry: language code → (normalizer, word→IPA).  The eSpeak
-# backend covers ~100 languages via compiled dictionaries; the hermetic
-# backend supports exactly the languages listed here and REFUSES others
-# rather than silently rendering them through English letter-to-sound
-# rules (which produces confidently wrong phonemes).
+# backend covers ~100 languages via compiled dictionaries
+# (reference: deps/dev/espeak-ng-data, espeak-phonemizer/build.rs:5-17);
+# the hermetic backend supports exactly the languages listed here and
+# REFUSES others rather than silently rendering them through English
+# letter-to-sound rules (which produces confidently wrong phonemes).
 _LANGUAGES: dict[str, tuple] = {
     "en": (normalize_text, english_word_to_ipa),
+    "ar": (normalize_text_ar, arabic_word_to_ipa),
+    "fa": (_lazy("rule_g2p_fa", "normalize_text"),
+           _lazy("rule_g2p_fa", "word_to_ipa")),
+    "ur": (_lazy("rule_g2p_fa", "normalize_text_ur"),  # shared script
+           _lazy("rule_g2p_fa", "word_to_ipa_ur")),    # pack, Urdu
+                                                       # numerals
+    "de": (_lazy("rule_g2p_de", "normalize_text"),
+           _lazy("rule_g2p_de", "word_to_ipa")),
+    "es": (_lazy("rule_g2p_es", "normalize_text"),
+           _lazy("rule_g2p_es", "word_to_ipa")),
+    "it": (_lazy("rule_g2p_it", "normalize_text"),
+           _lazy("rule_g2p_it", "word_to_ipa")),
+    "fr": (_lazy("rule_g2p_fr", "normalize_text"),
+           _lazy("rule_g2p_fr", "word_to_ipa")),
+    "pt": (_lazy("rule_g2p_pt", "normalize_text"),
+           _lazy("rule_g2p_pt", "word_to_ipa")),
+    "pl": (_lazy("rule_g2p_pl", "normalize_text"),
+           _lazy("rule_g2p_pl", "word_to_ipa")),
+    "tr": (_lazy("rule_g2p_tr", "normalize_text"),
+           _lazy("rule_g2p_tr", "word_to_ipa")),
+    "ro": (_lazy("rule_g2p_ro", "normalize_text"),
+           _lazy("rule_g2p_ro", "word_to_ipa")),
+    "nl": (_lazy("rule_g2p_nl", "normalize_text"),
+           _lazy("rule_g2p_nl", "word_to_ipa")),
+    "cs": (_lazy("rule_g2p_cs", "normalize_text"),
+           _lazy("rule_g2p_cs", "word_to_ipa")),
+    "hu": (_lazy("rule_g2p_hu", "normalize_text"),
+           _lazy("rule_g2p_hu", "word_to_ipa")),
+    "ru": (_lazy("rule_g2p_ru", "normalize_text"),
+           _lazy("rule_g2p_ru", "word_to_ipa")),
+    "el": (_lazy("rule_g2p_el", "normalize_text"),
+           _lazy("rule_g2p_el", "word_to_ipa")),
+    "fi": (_lazy("rule_g2p_fi", "normalize_text"),
+           _lazy("rule_g2p_fi", "word_to_ipa")),
+    "id": (_lazy("rule_g2p_id", "normalize_text"),
+           _lazy("rule_g2p_id", "word_to_ipa")),
+    "ms": (_lazy("rule_g2p_id", "normalize_text_ms"),  # EYD spelling
+           _lazy("rule_g2p_id", "word_to_ipa")),       # shared; Malay
+                                                       # numerals differ
+    "sw": (_lazy("rule_g2p_sw", "normalize_text"),
+           _lazy("rule_g2p_sw", "word_to_ipa")),
+    "sk": (_lazy("rule_g2p_sk", "normalize_text"),
+           _lazy("rule_g2p_sk", "word_to_ipa")),
+    "hr": (_lazy("rule_g2p_hr", "normalize_text"),
+           _lazy("rule_g2p_hr", "word_to_ipa")),
+    "sr": (_lazy("rule_g2p_hr", "normalize_text"),  # shared BCMS pack
+           _lazy("rule_g2p_hr", "word_to_ipa")),
+    "bs": (_lazy("rule_g2p_hr", "normalize_text"),
+           _lazy("rule_g2p_hr", "word_to_ipa")),
+    "uk": (_lazy("rule_g2p_uk", "normalize_text"),
+           _lazy("rule_g2p_uk", "word_to_ipa")),
+    "bg": (_lazy("rule_g2p_bg", "normalize_text"),
+           _lazy("rule_g2p_bg", "word_to_ipa")),
+    "sv": (_lazy("rule_g2p_sv", "normalize_text"),
+           _lazy("rule_g2p_sv", "word_to_ipa")),
+    "no": (_lazy("rule_g2p_no", "normalize_text"),
+           _lazy("rule_g2p_no", "word_to_ipa")),
+    "nb": (_lazy("rule_g2p_no", "normalize_text"),  # bokmål alias
+           _lazy("rule_g2p_no", "word_to_ipa")),
+    "da": (_lazy("rule_g2p_da", "normalize_text"),
+           _lazy("rule_g2p_da", "word_to_ipa")),
+    "is": (_lazy("rule_g2p_is", "normalize_text"),
+           _lazy("rule_g2p_is", "word_to_ipa")),
+    "sl": (_lazy("rule_g2p_sl", "normalize_text"),
+           _lazy("rule_g2p_sl", "word_to_ipa")),
+    "ca": (_lazy("rule_g2p_ca", "normalize_text"),
+           _lazy("rule_g2p_ca", "word_to_ipa")),
+    "cy": (_lazy("rule_g2p_cy", "normalize_text"),
+           _lazy("rule_g2p_cy", "word_to_ipa")),
+    "ka": (_lazy("rule_g2p_ka", "normalize_text"),
+           _lazy("rule_g2p_ka", "word_to_ipa")),
+    "kk": (_lazy("rule_g2p_kk", "normalize_text"),
+           _lazy("rule_g2p_kk", "word_to_ipa")),
+    "lb": (_lazy("rule_g2p_lb", "normalize_text"),
+           _lazy("rule_g2p_lb", "word_to_ipa")),
+    "vi": (_lazy("rule_g2p_vi", "normalize_text"),
+           _lazy("rule_g2p_vi", "word_to_ipa")),
+    "ne": (_lazy("rule_g2p_ne", "normalize_text"),
+           _lazy("rule_g2p_ne", "word_to_ipa")),
+    "zh": (_lazy("rule_g2p_zh", "normalize_text"),  # pinyin input;
+           _lazy("rule_g2p_zh", "word_to_ipa")),    # hanzi raises
+    "ko": (_lazy("rule_g2p_ko", "normalize_text"),
+           _lazy("rule_g2p_ko", "word_to_ipa")),
+    "hi": (_lazy("rule_g2p_hi", "normalize_text"),  # Devanagari via
+           _lazy("rule_g2p_hi", "word_to_ipa")),    # the ne machinery
+    "he": (_lazy("rule_g2p_he", "normalize_text"),
+           _lazy("rule_g2p_he", "word_to_ipa")),
 }
 
 #: Env var: set to "1" to let unsupported languages fall back to English
@@ -314,7 +595,7 @@ def phonemize_clause(text: str, voice: str = "en-us") -> str:
     output the downstream phoneme-id encoder expects (spaces are real
     symbols in Piper's ``phoneme_id_map``).
 
-    Raises :class:`~sonata_tpu.core.PhonemizationError` for languages the
+    Raises :class:`~sonata_tpu_torch.core.PhonemizationError` for languages the
     hermetic backend has no rules for — silently emitting English-rule
     phonemes for a German voice would be confidently wrong.  Set
     ``SONATA_G2P_BEST_EFFORT=1`` to opt into the English fallback.

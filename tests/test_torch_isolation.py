@@ -51,6 +51,10 @@ def test_scan_sees_the_whole_package():
                    "sonata_tpu_torch/models/piper.py",
                    "sonata_tpu_torch/ops/gate.py",
                    "sonata_tpu_torch/synth/synthesizer.py",
+                   "sonata_tpu_torch/text/tashkeel.py",
+                   "sonata_tpu_torch/models/tashkeel_cbhg.py",
+                   "sonata_tpu_torch/models/import_onnx.py",
+                   "sonata_tpu_torch/text/rule_g2p_de.py",
                    "chip_smoke.py"):
         assert needed in files
     assert _forbidden("jax.numpy") and _forbidden("sonata_tpu.models")
@@ -62,7 +66,10 @@ def test_importing_the_port_leaves_the_jax_package_unloaded():
         "import sys\n"
         "import sonata_tpu_torch, sonata_tpu_torch.models, "
         "sonata_tpu_torch.synth, sonata_tpu_torch.text, "
-        "sonata_tpu_torch.ops, sonata_tpu_torch.models.decode_opts\n"
+        "sonata_tpu_torch.ops, sonata_tpu_torch.models.decode_opts, "
+        "sonata_tpu_torch.text.tashkeel, "
+        "sonata_tpu_torch.models.tashkeel_cbhg, "
+        "sonata_tpu_torch.models.import_onnx\n"
         "bad = [m for m in sys.modules if m == 'sonata_tpu' "
         "or m.startswith('sonata_tpu.')]\n"
         "print(bad)\n"
@@ -78,4 +85,5 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES:
         assert (PORT / "csrc" / name).is_file()
     text = (REPO / "pyproject.toml").read_text(encoding="utf-8")
-    assert '"sonata_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
+    assert '"sonata_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", ' \
+        '"data/*.npz"]' in text

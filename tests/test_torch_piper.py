@@ -189,7 +189,6 @@ def test_gpu_voice_refuses_the_host_epilogue(voice_paths, monkeypatch):
     monkeypatch.setenv("SONATA_FUSED_EPILOGUE", "off")
     monkeypatch.setattr(piper, "resolve_device",
                         lambda device=None: torch.device("cuda", 0))
-    monkeypatch.setattr(piper, "_full_float32", lambda: None)
     with pytest.raises(OperationError, match="SONATA_FUSED_EPILOGUE=off"):
         PiperVoice.from_config_path(voice_paths["single"])
 
