@@ -1,0 +1,1002 @@
+"""sonata-scope: the aggregate observability plane.
+
+The serving stack had counters and per-request span
+trees, but nothing *aggregated*: "what is TTFB p99 over the last five
+minutes", "what fraction of device time is padding waste", "are we
+burning our latency budget" were unanswerable without scraping raw
+traces.  This module turns the trace firehose into operable fleet
+signals — four coupled pieces:
+
+1. **Per-stage streaming quantiles** — every finished trace feeds
+   fixed-memory :mod:`.sketches` per stage (phonemize, queue-wait,
+   dispatch, decode-window, TTFB, e2e) over rolling 1m/5m/1h windows,
+   exported as ``sonata_stage_quantile{stage,q,window}`` gauge
+   callbacks and ``GET /debug/quantiles``.
+2. **SLO burn-rate engine** — a declarative SLO table (``SONATA_SLO``,
+   grammar ``stage:pNN:threshold`` / ``error_rate:fraction``) with
+   SRE-style multi-window burn rates (fast 5m / slow 1h):
+   ``sonata_slo_burn_rate{slo,window}`` and
+   ``sonata_slo_budget_remaining{slo}``.  With
+   ``SONATA_DEGRADE_ON_BURN=1``, sustained fast-window burn counts as
+   pressure on the degradation ladder, so the ladder reacts to
+   user-visible latency, not just sheds.
+3. **Dispatch-efficiency accounting** — every device dispatch reports
+   its padded bucket shape and real row count (the attribution
+   channel); the scope accumulates
+   ``sonata_dispatch_padding_waste_seconds_total{voice}`` and
+   per-(batch,text,frame)-bucket hit/waste tables at
+   ``GET /debug/buckets`` — the baseline artifact the ROADMAP's
+   continuous-batching and bucket-audit items start from.
+4. **Flight recorder** — a bounded ring of once-per-second process
+   snapshots (queue depths, in-flight, healthy replicas, degradation
+   level, dispatch/compile counters, burn rates) at
+   ``GET /debug/timeline`` (JSON or ``?format=chrome``), auto-dumped to
+   ``SONATA_TIMELINE_DUMP_DIR`` when the degradation ladder reaches
+   level >= 2 or the hung-dispatch watchdog convicts a dispatch — every
+   incident ships with its preceding minutes.
+
+Cost model (the bar): per-request work is one trace walk at finish
+time (off the TTFB path) plus dict updates per *dispatch*; idle cost is
+the 1 Hz recorder tick.  With ``SONATA_SCOPE=0`` nothing is installed
+and every hook is a single module-global read.  The per-request stage
+feed rides the tracer, so ``SONATA_TRACE=0`` also empties the
+quantile/SLO streams (dispatch accounting, fed by the scheduler, keeps
+flowing).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+from . import degradation
+from .sketches import QuantileSketch, RollingCounter, RollingSketch
+
+log = logging.getLogger("sonata.serving")
+
+SCOPE_ENV = "SONATA_SCOPE"
+SLO_ENV = "SONATA_SLO"
+DUMP_DIR_ENV = "SONATA_TIMELINE_DUMP_DIR"
+TIMELINE_CAP_ENV = "SONATA_TIMELINE_CAP"
+DEGRADE_ON_BURN_ENV = "SONATA_DEGRADE_ON_BURN"
+BURN_PRESSURE_ENV = "SONATA_DEGRADE_BURN_RATE"
+
+#: stages the quantile plane tracks; per-request stages (everything but
+#: ``dispatch``) are fed from finished traces, ``dispatch`` from the
+#: scheduler itself so one coalesced dispatch counts once, not once per
+#: co-batched request
+STAGES = ("phonemize", "queue-wait", "dispatch", "decode-window", "ttfb",
+          "e2e")
+
+#: (label, seconds, ring slots) — slot duration = window / slots
+WINDOWS = (("1m", 60.0, 12), ("5m", 300.0, 15), ("1h", 3600.0, 30))
+
+QUANTILES = (("p50", 0.5), ("p90", 0.9), ("p99", 0.99))
+
+#: burn-rate windows (SRE multi-window convention: page on fast, hold on
+#: slow); both must exist in WINDOWS-equivalent rolling counters
+FAST_WINDOW = ("5m", 300.0, 15)
+SLOW_WINDOW = ("1h", 3600.0, 30)
+
+#: SLO table when SONATA_SLO is unset
+DEFAULT_SLO = "ttfb:p95:2s,e2e:p99:10s,error_rate:0.01"
+
+DEFAULT_TIMELINE_CAP = 600   # 10 minutes at 1 Hz
+DEFAULT_TICK_INTERVAL_S = 1.0
+DEFAULT_BURN_PRESSURE_RATE = 14.4  # SRE fast-burn page threshold
+DUMP_MIN_INTERVAL_S = 30.0
+
+#: the one definition of "this env knob is off" (mirrors tracing's)
+_FALSY = ("0", "false", "off", "no")
+
+_DURATION_RE = re.compile(r"^([0-9.]+)(ms|s|m)?$")
+
+
+def _env_truthy(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    return raw.strip().lower() not in _FALSY
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return max(1, int(os.environ.get(name, default)))
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def parse_duration_s(raw: str) -> float:
+    """``2s`` / ``500ms`` / ``1.5`` (bare seconds) / ``2m`` → seconds."""
+    m = _DURATION_RE.match(raw.strip().lower())
+    if m is None:
+        raise ValueError(f"unparseable duration {raw!r}")
+    value = float(m.group(1))
+    unit = m.group(2) or "s"
+    return value * {"ms": 1e-3, "s": 1.0, "m": 60.0}[unit]
+
+
+class SloSpec:
+    """One declarative objective.
+
+    Latency form (``stage:pNN:threshold``): at most ``1 - NN/100`` of
+    the stage's observations may exceed ``threshold``.  Error form
+    (``error_rate:fraction``): at most ``fraction`` of requests may
+    finish with an error status.  ``budget`` is the allowed bad
+    fraction; burn rate = observed bad fraction / budget, so 1.0 means
+    "burning exactly the whole budget" and 14.4 is the classic
+    fast-page threshold.
+    """
+
+    __slots__ = ("name", "kind", "stage", "quantile", "threshold_s",
+                 "budget")
+
+    def __init__(self, name: str, kind: str, *, stage: Optional[str] = None,
+                 quantile: Optional[float] = None,
+                 threshold_s: Optional[float] = None,
+                 budget: float = 0.01):
+        if budget <= 0 or budget >= 1:
+            raise ValueError(f"SLO {name!r}: budget must be in (0, 1)")
+        self.name = name
+        self.kind = kind  # "latency" | "error_rate"
+        self.stage = stage
+        self.quantile = quantile
+        self.threshold_s = threshold_s
+        self.budget = budget
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "kind": self.kind,
+             "budget": round(self.budget, 6)}
+        if self.kind == "latency":
+            d.update(stage=self.stage, quantile=self.quantile,
+                     threshold_s=self.threshold_s)
+        return d
+
+
+def parse_slos(raw: Optional[str] = None) -> List[SloSpec]:
+    """Parse the ``SONATA_SLO`` grammar (falling back to the default
+    table).  Raises ``ValueError`` on a malformed entry — a typo'd SLO
+    must fail loudly at boot, not silently never alert."""
+    raw = (raw if raw is not None
+           else os.environ.get(SLO_ENV, "")).strip() or DEFAULT_SLO
+    specs: List[SloSpec] = []
+    for entry in raw.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        parts = entry.split(":")
+        if parts[0] == "error_rate":
+            if len(parts) != 2:
+                raise ValueError(
+                    f"SLO entry {entry!r}: expected error_rate:<fraction>")
+            specs.append(SloSpec("error_rate", "error_rate",
+                                 budget=float(parts[1])))
+            continue
+        if len(parts) != 3:
+            raise ValueError(
+                f"SLO entry {entry!r}: expected stage:pNN:threshold")
+        stage, q_raw, threshold_raw = parts
+        if stage not in STAGES:
+            raise ValueError(
+                f"SLO entry {entry!r}: unknown stage {stage!r} "
+                f"(one of {', '.join(STAGES)})")
+        if not q_raw.startswith("p"):
+            raise ValueError(f"SLO entry {entry!r}: quantile must be pNN")
+        pct = float(q_raw[1:])
+        if not 0 < pct < 100:
+            raise ValueError(f"SLO entry {entry!r}: pNN out of (0, 100)")
+        specs.append(SloSpec(
+            f"{stage}_{q_raw}", "latency", stage=stage, quantile=pct / 100.0,
+            threshold_s=parse_duration_s(threshold_raw),
+            budget=1.0 - pct / 100.0))
+    if not specs:
+        raise ValueError(f"SLO table {raw!r} parsed to nothing")
+    names = [s.name for s in specs]
+    dupes = sorted({n for n in names if names.count(n) > 1})
+    if dupes:
+        # duplicates would silently share one counter set and
+        # double-count every observation into the burn rate
+        raise ValueError(f"SLO table {raw!r}: duplicate objective(s) "
+                         f"{', '.join(dupes)}")
+    return specs
+
+
+#: metric families the scope exports, registered table-driven in
+#: :meth:`Scope.bind_metrics` (the sonata-lint metricsdoc pass resolves
+#: loop-registered literal tables like this one)
+GAUGE_FAMILIES = (
+    ("sonata_stage_quantile",
+     "Rolling per-stage latency quantile in seconds, by stage, quantile "
+     "(p50/p90/p99) and window (1m/5m/1h)."),
+    ("sonata_slo_burn_rate",
+     "SLO burn rate by objective and window (1.0 = consuming exactly "
+     "the error budget; page on sustained fast-window burn)."),
+    ("sonata_slo_budget_remaining",
+     "Fraction of the slow-window error budget left per objective "
+     "(negative = overspent)."),
+)
+
+
+class Scope:
+    """Owns the sketches, SLO counters, bucket tables, and the flight
+    recorder.  One per :class:`~sonata_tpu_torch.serving.ServingRuntime`;
+    installed process-globally (like the degradation ladder) so the
+    scheduler and tracer feed it without holding a runtime reference.
+    """
+
+    def __init__(self, *, slos=None,
+                 timeline_cap: Optional[int] = None,
+                 dump_dir: Optional[str] = None,
+                 tick_interval_s: float = DEFAULT_TICK_INTERVAL_S,
+                 clock=None):
+        self._clock = clock if clock is not None else time.monotonic
+        self.slos = (parse_slos(slos) if slos is None or isinstance(slos, str)
+                     else list(slos))
+        self.tick_interval_s = max(0.05, tick_interval_s)
+        self.timeline_cap = (timeline_cap if timeline_cap is not None
+                             else _env_int(TIMELINE_CAP_ENV,
+                                           DEFAULT_TIMELINE_CAP))
+        self.dump_dir = (dump_dir if dump_dir is not None
+                         else os.environ.get(DUMP_DIR_ENV) or None)
+        self._degrade_on_burn = _env_truthy(DEGRADE_ON_BURN_ENV, False)
+        self._burn_pressure_rate = _env_float(BURN_PRESSURE_ENV,
+                                              DEFAULT_BURN_PRESSURE_RATE)
+
+        #: stage -> window label -> RollingSketch
+        self._stages: Dict[str, Dict[str, RollingSketch]] = {
+            stage: {label: RollingSketch(seconds, slots, clock=self._clock)
+                    for label, seconds, slots in WINDOWS}
+            for stage in STAGES}
+        #: merged-sketch memo per (stage, window): one merge serves a
+        #: whole scrape's worth of quantile callbacks
+        self._merged_cache: Dict[tuple, tuple] = {}
+        self._merged_lock = threading.Lock()
+
+        #: slo name -> window label -> RollingCounter
+        self._slo_counts: Dict[str, Dict[str, RollingCounter]] = {
+            spec.name: {label: RollingCounter(seconds, slots,
+                                              clock=self._clock)
+                        for label, seconds, slots in (FAST_WINDOW,
+                                                      SLOW_WINDOW)}
+            for spec in self.slos}
+        self._latency_slos: Dict[str, List[SloSpec]] = {}
+        for spec in self.slos:
+            if spec.kind == "latency":
+                self._latency_slos.setdefault(spec.stage, []).append(spec)
+        self._error_slos = [s for s in self.slos if s.kind == "error_rate"]
+
+        #: sonata-tenancy burn accounting: tenant -> slo name -> window
+        #: label -> RollingCounter, created lazily on the tenant's first
+        #: observation (the same SONATA_SLO objectives, counted per
+        #: tenant so one tenant's burn cannot hide inside the global
+        #: ring).  Empty — zero cost beyond one dict read — on
+        #: tenancy-off processes.
+        self._tenant_lock = threading.Lock()
+        self._tenant_slo: Dict[str, Dict[str, Dict[str,
+                                                   RollingCounter]]] = {}
+        #: tenant -> padding-waste accumulators (chargeback rows on
+        #: /debug/buckets): each dispatch's waste is pro-rated over the
+        #: tenants running synthesis at that moment (the fair gate's
+        #: active mix), attached by the runtime via attach_tenant_mix
+        self._tenant_waste: Dict[str, dict] = {}
+        self._tenant_mix_fn: Optional[Callable[[], dict]] = None
+
+        # dispatch-efficiency accounting
+        self._bucket_lock = threading.Lock()
+        #: (batch, text, frame) bucket -> accumulators
+        self._buckets: Dict[tuple, dict] = {}
+        self._voice_waste: Dict[str, float] = {}
+        self.dispatches_total = 0
+        self.padding_waste_seconds_total = 0.0
+        self.cold_compiles_total = 0
+        #: cold-compile containment: once the boot warmup
+        #: marks itself complete, any further ``compile=cold`` dispatch
+        #: is a lattice-coverage regression — counted per voice
+        #: (``sonata_runtime_cold_compiles_total``) and shipped as a
+        #: flight-recorder incident, so it cannot land silently.
+        #: ``_warmed_voices`` scopes the promise: None arms every voice
+        #: (tests / single-voice processes); a set arms exactly the
+        #: voices the boot warmup covered, so a voice legitimately
+        #: loaded AFTER readiness does not false-alarm on its first
+        #: compiles.
+        self._warmup_complete = False
+        self._warmed_voices: Optional[frozenset] = None
+        self._runtime_cold: Dict[str, int] = {}
+
+        # flight recorder
+        self._timeline: "deque[dict]" = deque(maxlen=max(self.timeline_cap,
+                                                         1))
+        self._timeline_lock = threading.Lock()
+        self._probes: Dict[str, Callable[[], Optional[float]]] = {}
+        self._probes_lock = threading.Lock()
+        self._last_level = 0
+        #: per-reason rate-limit stamps: a repeated watchdog conviction
+        #: must not re-dump every second, but it must also never starve
+        #: a different incident class (a ladder escalation) of its dump
+        self._last_dump_at: Dict[str, float] = {}
+        self.dumps: List[str] = []  # paths written (newest last)
+        self._breached: tuple = ()  # slo names burning > budget (fast)
+        #: synthesis-cache stats source: the runtime attaches
+        #: its SynthCache's ``cache_view`` so the debug plane and the
+        #: flight recorder carry hit-ratio rows; None on cache-off
+        #: processes (the snapshot then simply omits the section)
+        self._cache_view_fn: Optional[Callable[[], dict]] = None
+        self._started = time.monotonic()
+        self._stop = threading.Event()
+        self._ticker: Optional[threading.Thread] = None
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "Scope":
+        """Start the 1 Hz recorder thread (idempotent)."""
+        if self._ticker is None or not self._ticker.is_alive():
+            self._stop.clear()
+            self._ticker = threading.Thread(target=self._tick_loop,
+                                            name="sonata_scope_tick",
+                                            daemon=True)
+            self._ticker.start()
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+        ticker, self._ticker = self._ticker, None
+        if ticker is not None:
+            ticker.join(timeout=2.0)
+
+    def _tick_loop(self) -> None:
+        while not self._stop.wait(self.tick_interval_s):
+            try:
+                self.tick()
+            except Exception:
+                # the recorder must never take the process down
+                log.exception("scope tick failed")
+
+    # -- per-stage quantile feed ---------------------------------------------
+    def observe(self, stage: str, seconds: float) -> None:
+        """One stage observation; also feeds that stage's latency SLOs."""
+        windows = self._stages.get(stage)
+        if windows is None or seconds < 0:
+            return
+        for sketch in windows.values():
+            sketch.add(seconds)
+        for spec in self._latency_slos.get(stage, ()):
+            bad = seconds > spec.threshold_s
+            for counter in self._slo_counts[spec.name].values():
+                counter.record(bad=bad)
+
+    # -- per-tenant SLO burn (sonata-tenancy) ---------------------------------
+    def _tenant_rings(self, tenant: str, slo: str) -> Dict[str,
+                                                           "RollingCounter"]:
+        with self._tenant_lock:
+            rings = self._tenant_slo.get(tenant, {}).get(slo)
+        if rings is not None:
+            return rings
+        # construct outside the lock (first observation per (tenant,
+        # slo) only); the double-checked setdefault keeps one winner
+        fresh = {label: RollingCounter(seconds, slots,
+                                       clock=self._clock)
+                 for label, seconds, slots in (FAST_WINDOW,
+                                               SLOW_WINDOW)}
+        with self._tenant_lock:
+            by_slo = self._tenant_slo.setdefault(tenant, {})
+            return by_slo.setdefault(slo, fresh)
+
+    def observe_tenant(self, tenant: Optional[str], stage: str,
+                       seconds: float) -> None:
+        """One tenant-attributed stage observation, feeding the
+        tenant's own copy of that stage's latency SLO rings.  The
+        GLOBAL rings are fed by :meth:`note_trace`/:meth:`observe` as
+        before — this is strictly additive, a no-op when ``tenant`` is
+        None (tenancy off)."""
+        if tenant is None or seconds < 0:
+            return
+        for spec in self._latency_slos.get(stage, ()):
+            bad = seconds > spec.threshold_s
+            for counter in self._tenant_rings(tenant, spec.name).values():
+                counter.record(bad=bad)
+
+    def note_tenant_error(self, tenant: Optional[str], ok: bool) -> None:
+        """One tenant-attributed request outcome for the error-rate
+        SLOs (no-op when ``tenant`` is None)."""
+        if tenant is None:
+            return
+        for spec in self._error_slos:
+            for counter in self._tenant_rings(tenant, spec.name).values():
+                counter.record(bad=not ok)
+
+    def attach_tenant_mix(self, mix_fn: Callable[[], dict]) -> None:
+        """Attach the tenancy plane's active-stream mix (tenant →
+        running synthesis streams) so dispatch padding waste can be
+        pro-rated into per-tenant chargeback rows."""
+        self._tenant_mix_fn = mix_fn
+
+    def tenant_burn_snapshot(self) -> dict:
+        """{tenant: {slo: {window: burn_rate}}} — the per-tenant rows
+        ``/debug/quantiles`` and the fleet merge serve."""
+        budgets = {spec.name: spec.budget for spec in self.slos}
+        with self._tenant_lock:
+            out = {}
+            for tenant, by_slo in sorted(self._tenant_slo.items()):
+                rows = {}
+                for slo, rings in by_slo.items():
+                    budget = budgets.get(slo)
+                    if not budget:
+                        continue
+                    rows[slo] = {
+                        label: _round6(
+                            None if (frac := ring.bad_fraction()) is None
+                            else frac / budget)
+                        for label, ring in rings.items()}
+                out[tenant] = rows
+            return out
+
+    def note_trace(self, trace) -> None:
+        """Feed one finished trace: per-request stages, TTFB, e2e, and
+        the error-rate SLOs.  Runs at trace-finish time (after the last
+        audio left), never on the TTFB path."""
+        try:
+            for span in trace.spans_snapshot():
+                if span.end is None or span.parent_id is None:
+                    continue
+                if span.name in ("phonemize", "queue-wait", "decode-window"):
+                    self.observe(span.name, span.end - span.start)
+                elif span.name == "stream-emit":
+                    ttfb_ms = span.attrs.get("ttfb_ms")
+                    if ttfb_ms is not None:
+                        self.observe("ttfb", float(ttfb_ms) / 1e3)
+            self.observe("e2e", trace.duration_s)
+            ok = trace.status == "ok"
+            for spec in self._error_slos:
+                for counter in self._slo_counts[spec.name].values():
+                    counter.record(bad=not ok)
+        except Exception:
+            log.exception("scope trace feed failed")
+
+    # -- dispatch-efficiency accounting --------------------------------------
+    def note_dispatch(self, duration_s: float, attrs: dict) -> None:
+        """One device dispatch, with the attribution the model annotated
+        (:func:`~sonata_tpu_torch.serving.tracing.annotate_dispatch_group`).
+
+        ``waste = duration * padding_ratio`` uses the dispatch span's
+        own headline ``padding_ratio`` (padding rows / padded batch), so
+        this accounting and the per-dispatch trace attribution can never
+        disagree — the pinned test in tests/test_scope.py holds them
+        equal.
+        """
+        self.observe("dispatch", duration_s)
+        ratio = attrs.get("padding_ratio")
+        voice = attrs.get("voice")
+        cold = attrs.get("compile") == "cold"
+        key = (attrs.get("batch_bucket"), attrs.get("text_bucket"),
+               attrs.get("frame_bucket"))
+        waste = duration_s * float(ratio) if ratio is not None else 0.0
+        runtime_cold = False
+        with self._bucket_lock:
+            self.dispatches_total += 1
+            if cold:
+                self.cold_compiles_total += 1
+                # `scaled` = a non-default length scale changed the
+                # frame estimate: that shape was never in the lattice's
+                # coverage promise, so its compile is expected work,
+                # not a regression
+                if (self._warmup_complete
+                        and not attrs.get("scaled")
+                        and (self._warmed_voices is None
+                             or voice in self._warmed_voices)):
+                    runtime_cold = True
+                    v = voice if voice is not None else ""
+                    self._runtime_cold[v] = self._runtime_cold.get(v, 0) + 1
+        if runtime_cold:
+            # a compile AFTER warmup completion means the lattice missed
+            # a shape real traffic hits: loud log + incident dump (the
+            # preceding minutes show which traffic found the hole)
+            log.error(
+                "runtime cold compile after warmup completion "
+                "(voice=%s bucket=%s): the warmup lattice does not "
+                "cover this shape", voice, key)
+            self.note_incident("cold-compile")
+        if ratio is None:
+            return  # a model that never annotated (no bucket story)
+        # per-tenant chargeback (sonata-tenancy): a dispatch batch can
+        # mix tenants' sentences, so its waste is pro-rated over the
+        # tenants with running synthesis streams at this moment
+        mix_fn = self._tenant_mix_fn
+        mix = None
+        if mix_fn is not None:
+            try:
+                mix = mix_fn() or None
+            except Exception:
+                mix = None
+        if mix is not None:
+            total_streams = sum(mix.values()) or 1
+            with self._tenant_lock:
+                for tenant, streams in mix.items():
+                    acc = self._tenant_waste.get(tenant)
+                    if acc is None:
+                        acc = self._tenant_waste[tenant] = {
+                            "dispatches": 0, "seconds": 0.0,
+                            "waste_seconds": 0.0}
+                    frac = streams / total_streams
+                    acc["dispatches"] += 1
+                    acc["seconds"] += duration_s * frac
+                    acc["waste_seconds"] += waste * frac
+        with self._bucket_lock:
+            self.padding_waste_seconds_total += waste
+            if voice is not None:
+                self._voice_waste[voice] = (
+                    self._voice_waste.get(voice, 0.0) + waste)
+            acc = self._buckets.get(key)
+            if acc is None:
+                acc = self._buckets[key] = {
+                    "dispatches": 0, "rows": 0, "padding_rows": 0,
+                    "seconds": 0.0, "waste_seconds": 0.0,
+                    "cold_compiles": 0}
+            acc["dispatches"] += 1
+            acc["rows"] += int(attrs.get("rows", 0))
+            acc["padding_rows"] += int(attrs.get("padding_rows", 0))
+            acc["seconds"] += duration_s
+            acc["waste_seconds"] += waste
+            if cold:
+                acc["cold_compiles"] += 1
+
+    def padding_waste_seconds(self, voice: str) -> float:
+        with self._bucket_lock:
+            return self._voice_waste.get(voice, 0.0)
+
+    # -- cold-compile containment ---------------------------------------------
+    def mark_warmup_complete(self, voices=None) -> None:
+        """The boot warmup finished: from here on, a ``compile=cold``
+        dispatch counts as a runtime cold compile (a lattice-coverage
+        hole) and lands a flight-recorder incident.  ``voices`` scopes
+        the promise to the voice ids the lattice actually covered —
+        a voice loaded via LoadVoice *after* readiness made no coverage
+        promise, and its legitimate first compiles must not alarm.
+        None (the default) arms every voice."""
+        with self._bucket_lock:
+            self._warmup_complete = True
+            self._warmed_voices = (None if voices is None
+                                   else frozenset(voices))
+
+    @property
+    def warmup_complete(self) -> bool:
+        with self._bucket_lock:
+            return self._warmup_complete
+
+    def runtime_cold_compiles(self, voice: str) -> float:
+        """Cold compiles after warmup completion, per voice (the
+        ``sonata_runtime_cold_compiles_total`` callback)."""
+        with self._bucket_lock:
+            return float(self._runtime_cold.get(voice, 0))
+
+    def runtime_cold_compiles_total(self) -> int:
+        with self._bucket_lock:
+            return sum(self._runtime_cold.values())
+
+    # -- quantile / SLO queries ----------------------------------------------
+    def _merged(self, stage: str, window: str) -> QuantileSketch:
+        """Merged sketch for (stage, window), memoized so one scrape's 9
+        quantile callbacks per pair pay a single merge.  Invalidated by
+        the rolling sketch's add-generation (new data) and its slot
+        epoch (time passing expires old slots even with no adds)."""
+        rolling = self._stages[stage][window]
+        stamp = (rolling.generation,
+                 int(self._clock() / rolling.slot_s))
+        key = (stage, window)
+        with self._merged_lock:
+            cached = self._merged_cache.get(key)
+            if cached is not None and cached[0] == stamp:
+                return cached[1]
+        merged = rolling.merged()
+        with self._merged_lock:
+            self._merged_cache[key] = (stamp, merged)
+        return merged
+
+    def quantile(self, stage: str, q: float,
+                 window: str) -> Optional[float]:
+        if stage not in self._stages:
+            return None
+        return self._merged(stage, window).quantile(q)
+
+    def burn_rate(self, slo: str, window: str) -> Optional[float]:
+        """Observed bad fraction / budget for one window, or None while
+        the window is empty."""
+        counters = self._slo_counts.get(slo)
+        spec = next((s for s in self.slos if s.name == slo), None)
+        if counters is None or spec is None or window not in counters:
+            return None
+        frac = counters[window].bad_fraction()
+        if frac is None:
+            return None
+        return frac / spec.budget
+
+    def budget_remaining(self, slo: str) -> Optional[float]:
+        """1 - slow-window burn: the fraction of the error budget left
+        at the current slow-window spend (negative = overspent)."""
+        burn = self.burn_rate(slo, SLOW_WINDOW[0])
+        if burn is None:
+            return None
+        return 1.0 - burn
+
+    @property
+    def breached_slos(self) -> tuple:
+        """SLOs whose fast-window burn exceeded 1.0 at the last tick."""
+        return self._breached
+
+    @property
+    def slo_breach(self) -> bool:
+        return bool(self._breached)
+
+    # -- flight recorder ------------------------------------------------------
+    def add_probe(self, name: str,
+                  fn: Callable[[], Optional[float]]) -> None:
+        """Register a named scalar source sampled into every snapshot."""
+        with self._probes_lock:
+            self._probes[name] = fn
+
+    def remove_probe(self, name: str) -> None:
+        with self._probes_lock:
+            self._probes.pop(name, None)
+
+    def tick(self) -> dict:
+        """Record one snapshot (the recorder thread calls this at 1 Hz;
+        tests call it directly).  Also the burn→degradation coupling and
+        the level-triggered auto-dump live here, so they cost nothing on
+        any request path."""
+        snap: dict = {"ts": round(time.time(), 3),
+                      "up_s": round(time.monotonic() - self._started, 1)}
+        with self._probes_lock:
+            probes = list(self._probes.items())
+        for name, fn in probes:
+            try:
+                value = fn()
+            except Exception:
+                continue
+            if value is not None:
+                snap[name] = round(float(value), 3)
+        with self._bucket_lock:
+            snap["dispatches_total"] = self.dispatches_total
+            snap["padding_waste_seconds_total"] = round(
+                self.padding_waste_seconds_total, 3)
+            snap["cold_compiles_total"] = self.cold_compiles_total
+            snap["runtime_cold_compiles_total"] = sum(
+                self._runtime_cold.values())
+        breached = []
+        for spec in self.slos:
+            burn = self.burn_rate(spec.name, FAST_WINDOW[0])
+            if burn is None:
+                continue
+            snap[f"burn:{spec.name}"] = round(burn, 3)
+            if burn > 1.0:
+                breached.append(spec.name)
+        self._breached = tuple(breached)
+        snap["slo_breach"] = 1 if breached else 0
+        ladder = degradation.installed()
+        level = ladder.current_level() if ladder is not None else 0
+        snap["degradation_level"] = level
+        with self._timeline_lock:
+            self._timeline.append(snap)
+        # burn → ladder pressure (opt-in): sustained fast-window burn
+        # above the page threshold is user-visible latency pain
+        if (self._degrade_on_burn and breached
+                and any(snap.get(f"burn:{name}", 0.0)
+                        > self._burn_pressure_rate for name in breached)):
+            degradation.note_burn()
+        # level-triggered auto-dump: the ladder reaching reject-batch or
+        # worse means an incident is in progress — persist the preceding
+        # minutes while they are still in the ring
+        if level >= 2 and self._last_level < 2:
+            self.dump(f"degradation-level-{level}")
+        self._last_level = level
+        return snap
+
+    def note_incident(self, reason: str) -> Optional[str]:
+        """An out-of-band conviction (the watchdog): dump the timeline
+        now, rate-limited."""
+        return self.dump(reason)
+
+    def dump(self, reason: str) -> Optional[str]:
+        """Write the current timeline ring to ``dump_dir`` (no-op when
+        unset), at most once per ``DUMP_MIN_INTERVAL_S`` per reason."""
+        if not self.dump_dir:
+            return None
+        now = self._clock()
+        with self._timeline_lock:
+            last = self._last_dump_at.get(reason)
+            if last is not None and now - last < DUMP_MIN_INTERVAL_S:
+                return None
+            self._last_dump_at[reason] = now
+            snapshots = list(self._timeline)
+        path = os.path.join(
+            self.dump_dir,
+            f"timeline-{int(time.time())}-{reason}.json")
+        try:
+            os.makedirs(self.dump_dir, exist_ok=True)
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump({"reason": reason, "wall_time": time.time(),
+                           "interval_s": self.tick_interval_s,
+                           "snapshots": snapshots}, f)
+        except OSError:
+            log.exception("flight-recorder dump to %s failed", path)
+            return None
+        self.dumps.append(path)
+        log.warning("flight recorder dumped %d snapshot(s) to %s (%s)",
+                    len(snapshots), path, reason)
+        return path
+
+    # -- synthesis-cache rows (serving/synthcache.py) ---------------
+    def attach_cache_stats(self, view_fn: Callable[[], dict]) -> None:
+        """Attach the synthesis cache's ``cache_view`` callable so the
+        scope plane serves hit-ratio rows (``/debug/quantiles``
+        ``synth_cache`` section) next to the quantile/SLO state."""
+        self._cache_view_fn = view_fn
+
+    def cache_snapshot(self) -> Optional[dict]:
+        fn = self._cache_view_fn
+        if fn is None:
+            return None
+        try:
+            return fn()
+        except Exception:
+            # a closing cache must never break the debug plane
+            return None
+
+    # -- debug-plane views ----------------------------------------------------
+    def quantiles_snapshot(self) -> dict:
+        doc = {
+            "windows": [label for label, _s, _n in WINDOWS],
+            "stages": {
+                stage: {label: self._merged(stage, label).to_dict()
+                        for label, _s, _n in WINDOWS}
+                for stage in STAGES}}
+        cache = self.cache_snapshot()
+        if cache is not None:
+            doc["synth_cache"] = cache
+        tenants = self.tenant_burn_snapshot()
+        if tenants:
+            # per-tenant SLO burn rows (sonata-tenancy); absent on
+            # tenancy-off processes, so the pre-tenancy shape is intact
+            doc["tenants"] = tenants
+        return doc
+
+    def slo_snapshot(self) -> dict:
+        out = []
+        for spec in self.slos:
+            out.append({
+                **spec.to_dict(),
+                "burn_rate": {
+                    label: _round6(self.burn_rate(spec.name, label))
+                    for label in (FAST_WINDOW[0], SLOW_WINDOW[0])},
+                "budget_remaining": _round6(
+                    self.budget_remaining(spec.name))})
+        return {"slos": out, "breached": list(self._breached)}
+
+    def buckets_snapshot(self) -> dict:
+        with self._bucket_lock:
+            rows = [{"batch_bucket": b, "text_bucket": t, "frame_bucket": f,
+                     **{k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in acc.items()}}
+                    for (b, t, f), acc in sorted(
+                        self._buckets.items(),
+                        key=lambda kv: kv[1]["waste_seconds"],
+                        reverse=True)]
+            return {"dispatches_total": self.dispatches_total,
+                    "padding_waste_seconds_total": round(
+                        self.padding_waste_seconds_total, 6),
+                    "cold_compiles_total": self.cold_compiles_total,
+                    "runtime_cold_compiles_total": sum(
+                        self._runtime_cold.values()),
+                    "warmup_complete": self._warmup_complete,
+                    "per_voice_waste_seconds": {
+                        v: round(w, 6)
+                        for v, w in sorted(self._voice_waste.items())},
+                    "buckets": rows,
+                    **self._tenant_waste_rows()}
+
+    def _tenant_waste_rows(self) -> dict:
+        """``{"tenant_waste": [...]}`` rows for the buckets view, or
+        ``{}`` (tenancy off — the pre-tenancy document shape holds)."""
+        with self._tenant_lock:
+            if not self._tenant_waste:
+                return {}
+            rows = [{"tenant": tenant,
+                     **{k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in acc.items()}}
+                    for tenant, acc in sorted(
+                        self._tenant_waste.items(),
+                        key=lambda kv: kv[1]["waste_seconds"],
+                        reverse=True)]
+            return {"tenant_waste": rows}
+
+    def timeline_snapshot(self) -> list:
+        with self._timeline_lock:
+            return list(self._timeline)
+
+    # -- cross-process export (the fleet hop) -----------------------
+    def export_snapshot(self) -> dict:
+        """Compact mergeable export of the whole aggregation plane,
+        served per node at ``GET /debug/scope/export`` and folded
+        fleet-wide by the sonata-mesh router's
+        :class:`~sonata_tpu_torch.serving.fleetscope.FleetScope`.
+
+        Ships sketch *bins and slot epochs*, never samples (the
+        :mod:`.sketches` export contract), the SLO counter rings, the
+        totals, and the top padding-waste buckets.  ``wall_time`` lets
+        the importer measure this node's clock offset against its own
+        fetch window (what re-bases stitched traces).  Cost: one pass
+        over the rolling rings under their slot locks — no merging, no
+        quantile math — so serving it at the fleet scrape cadence stays
+        inside the <=2% overhead bar (measured: FLEET_r01.json
+        ``export_overhead_ratio``)."""
+        from .sketches import EXPORT_VERSION
+
+        with self._bucket_lock:
+            totals = {
+                "dispatches_total": self.dispatches_total,
+                "padding_waste_seconds_total": round(
+                    self.padding_waste_seconds_total, 6),
+                "cold_compiles_total": self.cold_compiles_total,
+                "runtime_cold_compiles_total": sum(
+                    self._runtime_cold.values())}
+            top_rows = [
+                {"batch_bucket": b, "text_bucket": t, "frame_bucket": f,
+                 **{k: (round(v, 6) if isinstance(v, float) else v)
+                    for k, v in acc.items()}}
+                for (b, t, f), acc in sorted(
+                    self._buckets.items(),
+                    key=lambda kv: kv[1]["waste_seconds"],
+                    reverse=True)[:8]]
+        doc = {
+            "v": EXPORT_VERSION,
+            "wall_time": time.time(),
+            "windows": [label for label, _s, _n in WINDOWS],
+            "stages": {
+                stage: {label: self._stages[stage][label].export()
+                        for label, _s, _n in WINDOWS}
+                for stage in STAGES},
+            "slos": {
+                spec.name: {
+                    label: self._slo_counts[spec.name][label].export()
+                    for label in (FAST_WINDOW[0], SLOW_WINDOW[0])}
+                for spec in self.slos},
+            "slo_table": [spec.to_dict() for spec in self.slos],
+            "totals": totals,
+            "top_waste_buckets": top_rows}
+        # the synthesis cache's view (hit counters, byte usage, and the
+        # hot_keys LRU head the fleet-cache replication pass consumes)
+        # rides the same export; absent on cache-off nodes — importers
+        # ignore unknown/missing keys, so no EXPORT_VERSION bump
+        cache = self.cache_snapshot()
+        if cache is not None:
+            doc["synth_cache"] = cache
+        # per-tenant SLO rings + waste rows (sonata-tenancy) ride the
+        # same export, keyed additively like synth_cache: absent on
+        # tenancy-off nodes, importers use .get — no EXPORT_VERSION bump
+        with self._tenant_lock:
+            if self._tenant_slo:
+                doc["tenant_slos"] = {
+                    tenant: {
+                        slo: {label: ring.export()
+                              for label, ring in rings.items()}
+                        for slo, rings in by_slo.items()}
+                    for tenant, by_slo in self._tenant_slo.items()}
+        tenant_waste = self._tenant_waste_rows()
+        if tenant_waste:
+            doc.update(tenant_waste)
+        return doc
+
+    def timeline_chrome(self) -> dict:
+        """Counter-track export: load next to ``/debug/traces``' chrome
+        file and the recorder's gauges line up under the spans."""
+        events = []
+        for snap in self.timeline_snapshot():
+            ts_us = snap["ts"] * 1e6
+            for key, value in snap.items():
+                if key == "ts" or not isinstance(value, (int, float)):
+                    continue
+                events.append({"ph": "C", "pid": 1, "tid": 0,
+                               "name": key, "ts": round(ts_us, 1),
+                               "args": {"value": value}})
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    # -- metrics export -------------------------------------------------------
+    def bind_metrics(self, registry) -> None:
+        """Attach the scope's gauge-callback families to a registry.
+
+        Process-lifetime series (like ``sonata_up``): nothing per-voice
+        is created here, so there is no teardown to record.  The family
+        table is loop-registered — the sonata-lint metricsdoc pass
+        resolves the literal names through the loop variable."""
+        families = {}
+        for name, help in GAUGE_FAMILIES:
+            families[name] = registry.gauge(name, help)
+        quant = families["sonata_stage_quantile"]
+        for stage in STAGES:
+            for wlabel, _s, _n in WINDOWS:
+                for qlabel, q in QUANTILES:
+                    quant.labels(
+                        stage=stage, q=qlabel, window=wlabel
+                    ).set_function(
+                        lambda s=stage, qq=q, w=wlabel:
+                        self.quantile(s, qq, w))
+        burn = families["sonata_slo_burn_rate"]
+        remaining = families["sonata_slo_budget_remaining"]
+        for spec in self.slos:
+            for wlabel in (FAST_WINDOW[0], SLOW_WINDOW[0]):
+                burn.labels(slo=spec.name, window=wlabel).set_function(
+                    lambda n=spec.name, w=wlabel: self.burn_rate(n, w))
+            remaining.labels(slo=spec.name).set_function(
+                lambda n=spec.name: self.budget_remaining(n))
+
+
+def _round6(v: Optional[float]) -> Optional[float]:
+    return None if v is None else round(v, 6)
+
+
+def scope_enabled() -> bool:
+    """``SONATA_SCOPE`` (default on) — the runtime's construction gate."""
+    return _env_truthy(SCOPE_ENV, True)
+
+
+# ---------------------------------------------------------------------------
+# process-global install: the scheduler and tracer feed the active scope
+# without a runtime reference (mirrors degradation's install pattern)
+# ---------------------------------------------------------------------------
+
+_installed: Optional[Scope] = None
+
+
+def install(scope: Scope) -> None:
+    global _installed
+    _installed = scope
+    from . import tracing
+
+    tracing.set_trace_observer(_on_trace_finished)
+
+
+def uninstall(scope: Scope) -> None:
+    """Remove ``scope`` if it is the installed one (a newer runtime's
+    scope is never clobbered by an older runtime's close)."""
+    global _installed
+    if _installed is scope:
+        _installed = None
+        from . import tracing
+
+        tracing.set_trace_observer(None)
+
+
+def installed() -> Optional[Scope]:
+    return _installed
+
+
+def _on_trace_finished(trace) -> None:
+    scope = _installed
+    if scope is not None:
+        scope.note_trace(trace)
+
+
+def note_dispatch(duration_s: float, attrs: dict) -> None:
+    """Scheduler hook: one device dispatch finished (no-op — a single
+    module-global read — when no scope is installed)."""
+    scope = _installed
+    if scope is not None:
+        scope.note_dispatch(duration_s, attrs)
+
+
+def note_watchdog() -> None:
+    """Scheduler hook: the watchdog convicted a dispatch — ship the
+    flight recorder's preceding minutes with the incident."""
+    scope = _installed
+    if scope is not None:
+        scope.note_incident("watchdog")

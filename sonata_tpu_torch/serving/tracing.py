@@ -1,0 +1,604 @@
+"""Request-scoped tracing: span pipeline, dispatch attribution, capture.
+
+The serving plane so far exposes only *aggregate* signals — RTF counters,
+TTFB/latency histograms, shed/expired counters.  When one stream's TTFB
+blows past p99 those cannot say whether the time went to queue wait,
+coalescer gather, a cold bucket compile, a breaker-driven resubmission,
+or the decode itself.  This module is the Dapper-style answer (Sigelman
+et al., 2010): every request carries a ``request_id`` (accepted from gRPC
+metadata ``x-request-id`` or generated) and grows a span tree across the
+pipeline — text-normalize → phonemize → encode-ids → admission →
+queue-wait → dispatch → decode → postprocess → stream-emit.
+
+Design constraints, in order:
+
+- **Lock-cheap and always-on-capable.**  A span is a monotonic-clock pair
+  plus a dict; recording appends to a per-trace list under a per-trace
+  lock.  Every hook is a no-op (one contextvar read) when no trace is
+  active, so library code can be instrumented unconditionally.
+- **Cross-thread by construction.**  The pipeline hops threads (gRPC
+  handler → scheduler worker → coalescer/finisher), so context does not
+  travel implicitly: the scheduler captures ``current()`` at submit time
+  and records queue-wait/dispatch spans into each item's trace from its
+  worker thread.
+- **Dispatch attribution** (the Orca lesson, Yu et al., OSDI '22): a
+  coalesced device dispatch is ONE shared span recorded into every
+  participating request's trace — same ``dispatch_id``, annotated with
+  batch size, the co-batched peers' request ids, bucket shape, padding
+  ratio, replica/device, and compile-vs-cached.  The model layer fills
+  the bucket/compile fields through :func:`annotate_dispatch`, a
+  contextvar channel the scheduler opens around ``speak_batch`` — no
+  tracer object ever threads through the model protocol.
+
+Finished traces export three ways:
+
+1. structured JSON log lines when ``SONATA_TRACE_LOG`` is set (truthy =
+   via the ``sonata.trace`` logger; a path = appended as JSONL);
+2. Chrome trace-event / Perfetto-loadable JSON
+   (:meth:`Tracer.chrome_trace`, served at ``/debug/traces?format=chrome``);
+3. bounded ring buffers of the N most recent and N slowest traces
+   (``SONATA_TRACE_RECENT``/``SONATA_TRACE_SLOWEST``), served from the
+   metrics HTTP plane at ``/debug/traces`` and ``/debug/slowest``.
+
+``SONATA_TRACE=0`` disables tracing entirely (default: on; measured
+overhead on the streaming bench is within noise — see
+BENCH_STREAMING_CPU_r09.json ``trace_overhead``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import heapq
+import itertools
+import json
+import logging
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Iterator, Optional
+
+log = logging.getLogger("sonata.trace")
+
+TRACE_ENV = "SONATA_TRACE"
+TRACE_LOG_ENV = "SONATA_TRACE_LOG"
+TRACE_RECENT_ENV = "SONATA_TRACE_RECENT"
+TRACE_SLOWEST_ENV = "SONATA_TRACE_SLOWEST"
+REQUEST_ID_METADATA_KEY = "x-request-id"
+DEFAULT_RECENT = 64
+DEFAULT_SLOWEST = 32
+
+#: monotonic → wall-clock anchor, fixed at import so every span in a
+#: process shares one timebase (Chrome trace ``ts`` must be comparable
+#: across traces)
+_WALL_ANCHOR = time.time() - time.monotonic()
+
+_ids = itertools.count(1)
+
+
+def new_id() -> str:
+    """Process-unique short id (span/dispatch ids)."""
+    return f"{next(_ids):x}"
+
+
+def new_request_id() -> str:
+    """Generated request id for requests that arrived without one."""
+    return uuid.uuid4().hex[:16]
+
+
+def request_id_from_metadata(metadata) -> Optional[str]:
+    """Extract ``x-request-id`` from gRPC invocation metadata (a sequence
+    of (key, value) pairs), or None."""
+    for key, value in metadata or ():
+        if str(key).lower() == REQUEST_ID_METADATA_KEY and value:
+            return str(value)
+    return None
+
+
+def request_id_from_context(context) -> Optional[str]:
+    """``x-request-id`` from a gRPC ServicerContext (or test double)."""
+    meta = getattr(context, "invocation_metadata", None)
+    if meta is None:
+        return None
+    try:
+        return request_id_from_metadata(meta())
+    except Exception:
+        return None
+
+
+#: the one definition of "this env knob is off" (SONATA_TRACE and the
+#: SONATA_TRACE_LOG sink check must never diverge on it)
+_FALSY = ("0", "false", "off", "no")
+
+
+def _env_truthy(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    return raw.strip().lower() not in _FALSY
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return max(1, int(os.environ.get(name, default)))
+    except ValueError:
+        return default
+
+
+class _NullSpan:
+    """Annotation sink for instrumented code running without a trace."""
+
+    __slots__ = ()
+    span_id = None
+
+    def annotate(self, **attrs) -> None:
+        pass
+
+    def finish(self, end: Optional[float] = None) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Span:
+    """One timed stage of a request; belongs to exactly one trace."""
+
+    __slots__ = ("span_id", "parent_id", "name", "start", "end", "attrs")
+
+    def __init__(self, name: str, parent_id: Optional[str],
+                 start: Optional[float] = None, attrs: Optional[dict] = None):
+        self.span_id = new_id()
+        self.parent_id = parent_id
+        self.name = name
+        self.start = time.monotonic() if start is None else start
+        self.end: Optional[float] = None
+        self.attrs = dict(attrs) if attrs else {}
+
+    def annotate(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def finish(self, end: Optional[float] = None) -> None:
+        if self.end is None:
+            self.end = time.monotonic() if end is None else end
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        if self.end is None:
+            return None
+        return self.end - self.start
+
+    def to_dict(self, t0: float) -> dict:
+        """Serializable view; times relative to the trace root (ms)."""
+        d = {"span_id": self.span_id, "parent_id": self.parent_id,
+             "name": self.name,
+             "start_ms": round((self.start - t0) * 1e3, 3)}
+        if self.end is not None:
+            d["duration_ms"] = round((self.end - self.start) * 1e3, 3)
+        if self.attrs:
+            d["attrs"] = dict(self.attrs)
+        return d
+
+
+class Trace:
+    """One request's span tree.  Spans may be recorded from any thread."""
+
+    def __init__(self, tracer: "Tracer", name: str, request_id: str,
+                 attrs: Optional[dict] = None):
+        self._tracer = tracer
+        self.name = name
+        self.request_id = request_id
+        self.attrs = dict(attrs) if attrs else {}
+        self.status: Optional[str] = None
+        self.wall_start = time.time()
+        self._lock = threading.Lock()
+        self.root = Span(name, parent_id=None)
+        self._spans = [self.root]
+        self._finished = False
+
+    # -- recording -----------------------------------------------------------
+    def new_span(self, name: str, parent=None,
+                 start: Optional[float] = None, end: Optional[float] = None,
+                 attrs: Optional[dict] = None) -> Span:
+        """Record a span; ``parent`` is a Span, a span id, or None (root).
+        Pass ``end`` to record an already-finished interval (how the
+        scheduler backfills queue-wait/dispatch from its worker thread)."""
+        parent_id = (parent.span_id if isinstance(parent, Span)
+                     else parent) or self.root.span_id
+        span = Span(name, parent_id, start=start, attrs=attrs)
+        if end is not None:
+            span.finish(end)
+        with self._lock:
+            self._spans.append(span)
+        return span
+
+    def annotate(self, **attrs) -> None:
+        with self._lock:
+            self.attrs.update(attrs)
+
+    def finish(self, status: str = "ok") -> None:
+        """Idempotent; hands the trace to the tracer's ring buffers."""
+        with self._lock:
+            if self._finished:
+                return
+            self._finished = True
+            self.status = status
+        self.root.finish()
+        self._tracer._record(self)
+
+    # -- views ---------------------------------------------------------------
+    @property
+    def duration_s(self) -> float:
+        end = self.root.end if self.root.end is not None else time.monotonic()
+        return end - self.root.start
+
+    def spans_snapshot(self) -> list:
+        with self._lock:
+            return list(self._spans)
+
+    def span_names(self) -> set:
+        return {s.name for s in self.spans_snapshot()}
+
+    def to_dict(self) -> dict:
+        t0 = self.root.start
+        with self._lock:
+            spans = list(self._spans)
+            attrs = dict(self.attrs)
+        return {"request_id": self.request_id, "name": self.name,
+                "status": self.status, "wall_start": self.wall_start,
+                "duration_ms": round(self.duration_s * 1e3, 3),
+                "attrs": attrs,
+                "spans": [s.to_dict(t0) for s in spans]}
+
+    def chrome_events(self, tid: int, pid: int = 1) -> list:
+        """Chrome trace-event ``X`` (complete) events, one per finished
+        span, on one virtual thread per request."""
+        events = [{"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
+                   "args": {"name": f"req {self.request_id}"}}]
+        for s in self.spans_snapshot():
+            end = s.end if s.end is not None else s.start
+            events.append({
+                "ph": "X", "pid": pid, "tid": tid, "name": s.name,
+                "cat": self.name,
+                "ts": round((s.start + _WALL_ANCHOR) * 1e6, 1),
+                "dur": round((end - s.start) * 1e6, 1),
+                "args": {**s.attrs, "request_id": self.request_id,
+                         "span_id": s.span_id,
+                         "parent_id": s.parent_id or ""},
+            })
+        return events
+
+
+def chrome_events_from_dict(trace_dict: dict, *, pid: int, tid: int = 1,
+                            wall_offset_s: float = 0.0) -> list:
+    """Chrome trace events from a *serialized* :meth:`Trace.to_dict`
+    document — how the sonata-mesh router splices a remote node's trace
+    (fetched as JSON over the node's ``/debug/traces?id=`` plane) into
+    one stitched cross-host document.
+
+    ``wall_offset_s`` is the probe-measured remote-minus-local wall
+    clock offset; subtracting it re-bases the remote spans onto the
+    local timebase, matching :meth:`Trace.chrome_events`'s
+    wall-anchored ``ts`` so router and node spans line up in one
+    Perfetto load."""
+    rid = trace_dict.get("request_id", "")
+    events = [{"ph": "M", "pid": pid, "tid": tid, "name": "thread_name",
+               "args": {"name": f"req {rid}"}}]
+    t0 = float(trace_dict.get("wall_start", 0.0)) - wall_offset_s
+    for s in trace_dict.get("spans", ()):
+        start_s = t0 + float(s.get("start_ms", 0.0)) / 1e3
+        events.append({
+            "ph": "X", "pid": pid, "tid": tid,
+            "name": s.get("name", "?"),
+            "cat": trace_dict.get("name", ""),
+            "ts": round(start_s * 1e6, 1),
+            "dur": round(float(s.get("duration_ms", 0.0)) * 1e3, 1),
+            "args": {**(s.get("attrs") or {}), "request_id": rid,
+                     "span_id": s.get("span_id", ""),
+                     "parent_id": s.get("parent_id") or ""},
+        })
+    return events
+
+
+# ---------------------------------------------------------------------------
+# context propagation (same-thread hooks)
+# ---------------------------------------------------------------------------
+
+#: (trace, current_span) for the executing context, or None
+_CTX: "contextvars.ContextVar[Optional[tuple]]" = contextvars.ContextVar(
+    "sonata_trace_ctx", default=None)
+
+
+def current() -> Optional[tuple]:
+    """The active (trace, span) pair, or None.  What cross-thread stages
+    (scheduler items, stream producers) capture at hand-off time."""
+    return _CTX.get()
+
+
+def current_trace() -> Optional[Trace]:
+    ctx = _CTX.get()
+    return ctx[0] if ctx else None
+
+
+@contextlib.contextmanager
+def use_trace(trace: Optional[Trace], span: Optional[Span] = None
+              ) -> Iterator[Optional[Trace]]:
+    """Activate ``trace`` (at ``span``, default root) for the block.
+    ``trace=None`` is a no-op — callers never need to branch."""
+    if trace is None:
+        yield None
+        return
+    token = _CTX.set((trace, span if span is not None else trace.root))
+    try:
+        yield trace
+    finally:
+        _reset(token)
+
+
+def _reset(token) -> None:
+    """Reset a context token, tolerating cross-context finalization (a
+    generator holding the block can be closed by GC on another thread,
+    where the token is foreign and reset() raises ValueError)."""
+    try:
+        _CTX.reset(token)
+    except ValueError:
+        pass
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs) -> Iterator:
+    """Record a child span of the current context; no-op without a trace.
+
+    Yields the :class:`Span` (or :data:`NULL_SPAN`), so callers can
+    ``sp.annotate(...)`` unconditionally.  An escaping exception is
+    recorded as an ``error`` attribute before re-raising.
+    """
+    ctx = _CTX.get()
+    if ctx is None:
+        yield NULL_SPAN
+        return
+    trace, parent = ctx
+    sp = trace.new_span(name, parent=parent, attrs=attrs)
+    token = _CTX.set((trace, sp))
+    try:
+        yield sp
+    except BaseException as e:
+        sp.annotate(error=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        _reset(token)
+        sp.finish()
+
+
+# ---------------------------------------------------------------------------
+# dispatch attribution channel (scheduler ↔ model)
+# ---------------------------------------------------------------------------
+
+_DISPATCH: "contextvars.ContextVar[Optional[dict]]" = contextvars.ContextVar(
+    "sonata_dispatch_attrs", default=None)
+
+
+@contextlib.contextmanager
+def dispatch_scope(attrs: dict) -> Iterator[dict]:
+    """Open the annotation channel for one device dispatch.  The
+    scheduler wraps ``model.speak_batch`` in this; the model fills in
+    bucket shape / padding / compile state via :func:`annotate_dispatch`
+    without knowing anything about tracing."""
+    token = _DISPATCH.set(attrs)
+    try:
+        yield attrs
+    finally:
+        _DISPATCH.reset(token)
+
+
+def annotate_dispatch(**attrs) -> None:
+    """Attach attributes to the active dispatch span, if any (no-op
+    outside a :func:`dispatch_scope` — e.g. direct ``speak_batch``
+    calls)."""
+    d = _DISPATCH.get()
+    if d is not None:
+        d.update(attrs)
+
+
+def annotate_dispatch_group(**attrs) -> None:
+    """Like :func:`annotate_dispatch`, for models whose one
+    ``speak_batch`` call issues SEVERAL device programs (bucket groups).
+
+    Each call appends the group's attrs to ``device_groups``; the span's
+    headline fields keep the first group's shape but aggregate the
+    outlier-relevant ones worst-case — ``compile`` is ``cold`` if ANY
+    group compiled, ``padding_ratio`` is the max — so a cold first group
+    followed by cached ones can never be misread as a cached dispatch.
+    """
+    d = _DISPATCH.get()
+    if d is None:
+        return
+    groups = d.setdefault("device_groups", [])
+    groups.append(dict(attrs))
+    if len(groups) == 1:
+        d.update(attrs)
+        return
+    if attrs.get("compile") == "cold":
+        d["compile"] = "cold"
+    if "padding_ratio" in attrs:
+        d["padding_ratio"] = max(d.get("padding_ratio", 0.0),
+                                 attrs["padding_ratio"])
+    if attrs.get("scaled"):
+        # any scaled group puts the whole dispatch outside the warmup
+        # lattice's coverage promise (cold-compile containment skips it)
+        d["scaled"] = True
+
+
+# ---------------------------------------------------------------------------
+# finished-trace observer (the scope aggregation plane's feed)
+# ---------------------------------------------------------------------------
+
+#: one process-wide hook called with every finished Trace (whatever
+#: tracer finished it, so injected test tracers feed the same plane).
+#: None (the default) keeps trace finish exactly as cheap as before —
+#: a single module-global read.
+_TRACE_OBSERVER: Optional[callable] = None
+
+
+def set_trace_observer(fn) -> None:
+    """Install (or clear, with None) the finished-trace hook.  What
+    :mod:`.scope` uses to feed per-stage quantile sketches without the
+    tracer knowing the aggregation plane exists."""
+    global _TRACE_OBSERVER
+    _TRACE_OBSERVER = fn
+
+
+# ---------------------------------------------------------------------------
+# tracer: ring buffers + exports
+# ---------------------------------------------------------------------------
+
+class Tracer:
+    """Owns finished-trace retention and export; cheap to share.
+
+    ``enabled=False`` (or ``SONATA_TRACE=0``) turns :meth:`start_trace`
+    into a None factory — every downstream hook then no-ops.
+    """
+
+    def __init__(self, *, enabled: Optional[bool] = None,
+                 recent: Optional[int] = None,
+                 slowest: Optional[int] = None,
+                 log_sink: Optional[str] = None):
+        self.enabled = (_env_truthy(TRACE_ENV, True)
+                        if enabled is None else enabled)
+        self.recent_cap = recent or _env_int(TRACE_RECENT_ENV,
+                                             DEFAULT_RECENT)
+        self.slowest_cap = slowest or _env_int(TRACE_SLOWEST_ENV,
+                                               DEFAULT_SLOWEST)
+        self._recent: "deque[Trace]" = deque(maxlen=self.recent_cap)
+        self._slow: list = []  # min-heap of (duration, seq, trace)
+        self._seq = itertools.count()
+        self._lock = threading.Lock()
+        #: SONATA_TRACE_LOG: truthy → JSON line per trace via the
+        #: ``sonata.trace`` logger; a path-looking value → append JSONL
+        raw = (os.environ.get(TRACE_LOG_ENV, "")
+               if log_sink is None else log_sink).strip()
+        self._log_path: Optional[str] = None
+        self._log_lock = threading.Lock()  # file appends only: disk I/O
+        #                must never block the ring buffers or /debug reads
+        self._log_lines = False
+        if raw and raw.lower() not in _FALSY:
+            if os.sep in raw or raw.endswith((".jsonl", ".json", ".log")):
+                self._log_path = raw
+            else:
+                self._log_lines = True
+
+    # -- trace lifecycle -----------------------------------------------------
+    def start_trace(self, name: str, request_id: Optional[str] = None,
+                    **attrs) -> Optional[Trace]:
+        if not self.enabled:
+            return None
+        return Trace(self, name, request_id or new_request_id(), attrs)
+
+    @contextlib.contextmanager
+    def trace_request(self, name: str, request_id: Optional[str] = None,
+                      **attrs) -> Iterator[Optional[Trace]]:
+        """Create + activate a trace for the block; finishes it with
+        ``ok`` or ``error: <type>`` (exceptions re-raise)."""
+        trace = self.start_trace(name, request_id=request_id, **attrs)
+        if trace is None:
+            yield None
+            return
+        with use_trace(trace):
+            try:
+                yield trace
+            except BaseException as e:
+                trace.annotate(error=str(e))
+                trace.finish(status=f"error: {type(e).__name__}")
+                raise
+            else:
+                trace.finish("ok")
+
+    def _record(self, trace: Trace) -> None:
+        duration = trace.duration_s
+        with self._lock:
+            self._recent.append(trace)
+            entry = (duration, next(self._seq), trace)
+            if len(self._slow) < self.slowest_cap:
+                heapq.heappush(self._slow, entry)
+            elif duration > self._slow[0][0]:
+                heapq.heapreplace(self._slow, entry)
+        if self._log_lines or self._log_path:
+            self._export_log_line(trace)
+        observer = _TRACE_OBSERVER
+        if observer is not None:
+            try:
+                observer(trace)
+            except Exception:
+                # the aggregation plane must never break trace retention
+                log.exception("trace observer failed")
+
+    def _export_log_line(self, trace: Trace) -> None:
+        try:
+            line = json.dumps({"event": "trace", **trace.to_dict()},
+                              ensure_ascii=False,
+                              separators=(",", ":"))
+        except (TypeError, ValueError):
+            # a non-serializable attr must never break the request path
+            log.exception("trace %s not JSON-serializable",
+                          trace.request_id)
+            return
+        if self._log_path:
+            try:
+                with self._log_lock:
+                    with open(self._log_path, "a", encoding="utf-8") as f:
+                        f.write(line + "\n")
+            except OSError:
+                log.exception("cannot append to %s", self._log_path)
+        else:
+            log.info("%s", line)
+
+    # -- retrieval -----------------------------------------------------------
+    def recent_traces(self) -> list:
+        """Finished traces, newest first."""
+        with self._lock:
+            return list(self._recent)[::-1]
+
+    def slowest_traces(self) -> list:
+        """Finished traces, slowest first (bounded ring)."""
+        with self._lock:
+            entries = sorted(self._slow, reverse=True)
+        return [t for _d, _s, t in entries]
+
+    def find(self, request_id: str) -> Optional[Trace]:
+        for t in self.recent_traces():
+            if t.request_id == request_id:
+                return t
+        return None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._recent.clear()
+            self._slow.clear()
+
+    # -- exports -------------------------------------------------------------
+    @staticmethod
+    def chrome_trace(traces) -> dict:
+        """Chrome trace-event JSON (load in chrome://tracing or
+        https://ui.perfetto.dev): one virtual thread per request."""
+        events = []
+        for tid, trace in enumerate(traces, start=1):
+            events.extend(trace.chrome_events(tid))
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+_default_tracer: Optional[Tracer] = None
+_default_lock = threading.Lock()
+
+
+def default_tracer() -> Tracer:
+    """Process-wide tracer (what :class:`ServingRuntime` and the CLI use
+    by default, so the HTTP debug plane and every frontend agree on one
+    ring buffer)."""
+    global _default_tracer
+    if _default_tracer is None:
+        with _default_lock:
+            if _default_tracer is None:
+                _default_tracer = Tracer()
+    return _default_tracer

@@ -1,0 +1,1210 @@
+"""The batching core: ONE gather/dispatch engine for every coalescing path.
+
+Before this module, three copies of the same machinery lived in the
+tree — :class:`~sonata_tpu_torch.synth.scheduler.BatchScheduler` (sentence
+requests), the streaming window-decode coalescer, and the streaming
+encode+acoustics stage coalescer (both in :mod:`sonata_tpu_torch.models.piper`).
+Each owned its own queue, gather loop, shutdown drain, and future
+bookkeeping, and the serving contracts (deadline-drop-before-pack, bounded
+shed, watchdog, crash containment) existed only where someone had
+remembered to copy them.  :class:`BatchingCore` is that contract, once:
+
+- **bounded queueing** — a full queue sheds typed
+  (:class:`~sonata_tpu_torch.serving.admission.Overloaded`) and feeds the
+  degradation ladder, never grows without limit;
+- **gather** — collect up to ``max_batch`` compatible items (same
+  ``key``), waiting at most ``max_wait`` after the first; a degraded
+  process collapses the wait to zero (``degradation.gather_scale``);
+- **deadline-drop-before-pack** — expired/cancelled items leave the
+  batch *before* device work is spent on them;
+- **failpoints** — the gather loop fires an owner-named site;
+- **watchdog** — :class:`DispatchSupervisor` bounds a device call by
+  wall clock and quarantines the helper thread on conviction (a wedged
+  chip raises nothing);
+- **crash containment** — an exception escaping the worker loop fails
+  every gathered and queued future typed instead of stranding callers;
+- **drain** — close fails queued work typed, including the
+  submit-vs-drain race (an item enqueued while close drains can never
+  leave its caller blocked in ``fut.result()``).
+
+The owners are now thin: they supply a ``dispatch`` callback (and
+optionally a ``finish`` callback for two-phase enqueue/fetch pipelining)
+plus their grouping key, and inherit everything above.
+
+This module also houses the **iteration-level scheduler**
+(:class:`IterationLoop`): the Orca-style persistent per-device decode
+loop behind ``SONATA_BATCH_MODE=iteration`` — streams *join* a running
+batch at iteration boundaries and *retire* when they end, instead of
+every dispatch gathering from scratch.  See :func:`resolve_batch_mode`.
+"""
+
+from __future__ import annotations
+
+import heapq
+import logging
+import os
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Callable, Optional
+
+from ..core import OperationError
+from ..serving import degradation, faults, scope, tracing
+from ..serving.admission import Overloaded
+from ..serving.deadlines import Deadline, DeadlineExceeded
+from ..utils.buckets import BATCH_BUCKETS, bucket_for
+
+log = logging.getLogger("sonata.serving")
+
+# ---------------------------------------------------------------------------
+# batch-mode resolution (SONATA_BATCH_MODE)
+# ---------------------------------------------------------------------------
+
+#: dispatch = wave batching (gather within a wait window, dispatch,
+#: disband); iteration = the persistent Orca-style decode loop.  The
+#: default rides the backend-adaptive dispatch policy: a backend
+#: whose probe keeps coalescing (accelerators) defaults to iteration;
+#: a per-request backend (CPU fast path) keeps dispatch mode.
+BATCH_MODE_ENV = "SONATA_BATCH_MODE"
+BATCH_MODES = ("dispatch", "iteration")
+
+
+def resolve_batch_mode(policy=None, env: Optional[dict] = None) -> str:
+    """``SONATA_BATCH_MODE`` > the dispatch policy's coalesce decision.
+
+    A typo'd mode fails loudly (the warmup-lattice/SLO-table contract:
+    a fleet silently running the wrong batching mode is a utilization
+    regression nobody would see until the next bench run).
+    """
+    env = os.environ if env is None else env
+    raw = env.get(BATCH_MODE_ENV, "").strip().lower()
+    if raw:
+        if raw not in BATCH_MODES:
+            raise OperationError(
+                f"{BATCH_MODE_ENV}={raw!r} is not one of "
+                f"{'/'.join(BATCH_MODES)}")
+        return raw
+    if policy is not None and getattr(policy, "coalesce", False):
+        return "iteration"
+    return "dispatch"
+
+
+#: Pipelined iteration fetch: with a two-phase owner (``finish=``), the
+#: loop's worker dispatches iteration k+1's device program while a
+#: finisher thread blocks on iteration k's result fetch — the same
+#: two-thread trick the wave coalescers already use, carried to the
+#: persistent loop so remote-chip links overlap transfer with compute.
+#: ``0`` forces the synchronous shape (the bench A/B arm).
+ITER_PIPELINE_ENV = "SONATA_ITER_PIPELINE"
+
+
+def resolve_iter_pipeline(env: Optional[dict] = None) -> bool:
+    """``SONATA_ITER_PIPELINE=0|1`` (default 1).  A typo fails loudly —
+    the SONATA_BATCH_MODE contract: a fleet silently running the
+    synchronous fetch is a latency regression nobody would see."""
+    env = os.environ if env is None else env
+    raw = env.get(ITER_PIPELINE_ENV, "").strip()
+    if raw == "":
+        return True
+    if raw in ("0", "1"):
+        return raw == "1"
+    raise OperationError(
+        f"{ITER_PIPELINE_ENV}={raw!r} is not 0 or 1")
+
+
+def effective_batch_mode(policy=None, env: Optional[dict] = None) -> str:
+    """The mode after the degradation ladder's override: a degraded
+    process (level >= 1, the same threshold that collapses gather
+    windows) forces iteration back to dispatch mode — new streams then
+    take the simpler wave path while pressure lasts; resident streams
+    finish where they are."""
+    mode = resolve_batch_mode(policy, env)
+    if mode == "iteration" and degradation.force_dispatch_mode():
+        return "dispatch"
+    return mode
+
+
+# ---------------------------------------------------------------------------
+# work items
+# ---------------------------------------------------------------------------
+
+class WorkItem:
+    """One queued unit of batchable work."""
+
+    __slots__ = ("payload", "key", "future", "deadline", "tctx", "t_submit")
+
+    def __init__(self, payload, *, key=None,
+                 future: Optional[Future] = None,
+                 deadline: Optional[Deadline] = None, tctx=None):
+        self.payload = payload
+        self.key = key
+        self.future = future if future is not None else Future()
+        self.deadline = deadline
+        self.t_submit = time.monotonic()
+        #: (trace, parent span) captured at submit time — spans recorded
+        #: by a worker thread land in the submitting request's trace
+        self.tctx = tctx
+
+
+def try_set_result(fut: Future, value) -> None:
+    """Resolve a future, tolerating a concurrent cancel (a
+    cancelled-then-set InvalidStateError must never kill a worker)."""
+    try:
+        fut.set_result(value)
+    except Exception:
+        pass
+
+
+def try_set_exception(fut: Future, exc: Exception) -> None:
+    try:
+        fut.set_exception(exc)
+    except Exception:
+        pass
+
+
+def drain_pending_futures(q: "queue.Queue", fut_of, reason: str) -> None:
+    """Fail every future still sitting in a work queue.
+
+    ``fut_of(item)`` extracts the future(s) from one queued item.
+    Called on close after worker threads exited: without it a caller
+    blocked in ``fut.result()`` (no timeout) would hang forever on an
+    engine closed mid-request.
+    """
+    while True:
+        try:
+            item = q.get_nowait()
+        except queue.Empty:
+            return
+        if item is None:
+            continue
+        futs = fut_of(item)
+        for fut in (futs if isinstance(futs, list) else [futs]):
+            try:
+                fut.set_exception(OperationError(reason))
+            except Exception:
+                pass
+
+
+# ---------------------------------------------------------------------------
+# the gather/dispatch engine
+# ---------------------------------------------------------------------------
+
+class BatchingCore:
+    """The one gather/dispatch engine (see module docstring).
+
+    Owner hooks:
+
+    - ``dispatch(items) -> ticket | None`` — process one gathered group.
+      Returning ``None`` means the owner fully handled the group
+      (resolved its futures); returning a ticket hands the group to the
+      finisher thread (two-phase pipelining: the dispatcher enqueues
+      device programs back-to-back while the finisher blocks on each
+      result fetch).  An exception fails the whole group's futures.
+    - ``finish(items, ticket)`` — second phase; resolves the futures.
+      Required iff any dispatch returns a ticket.
+    - ``alive() -> bool`` — liveness re-check on idle poll timeouts
+      (the coalescers' weak voice reference); ``False`` exits the
+      worker quietly.
+    - ``on_drop(item, outcome, now)`` — accounting hook when the
+      deadline filter drops an item (outcome ``expired``/``cancelled``);
+      the core already failed/cancelled the future.
+    - ``on_crash(exc, items)`` — containment hook after the core failed
+      the gathered+queued futures typed; owners report to their model
+      (a pool replica recycles itself).
+
+    ``max_queue <= 0`` means unbounded (the coalescers: their callers
+    are already admission-bounded); a bounded queue sheds typed with
+    :class:`Overloaded` and notes the shed to the degradation ladder.
+    """
+
+    def __init__(self, *, dispatch: Callable, max_batch: int,
+                 max_wait_s: float, name: str,
+                 finish: Optional[Callable] = None,
+                 max_queue: int = 0,
+                 keyed: bool = False,
+                 drop_dead: bool = False,
+                 degradation_scaled: bool = False,
+                 failpoint_site: Optional[str] = None,
+                 alive: Optional[Callable[[], bool]] = None,
+                 on_drop: Optional[Callable] = None,
+                 on_crash: Optional[Callable] = None,
+                 closed_reason: str = "batching core shut down",
+                 shed_reason: Optional[str] = None,
+                 poll_s: float = 0.5):
+        self._dispatch_cb = dispatch
+        self._finish_cb = finish
+        self._max_batch = max_batch
+        self._max_wait = max_wait_s
+        self._max_queue = max_queue
+        self._keyed = keyed
+        self._drop_dead = drop_dead
+        self._degradation_scaled = degradation_scaled
+        self._failpoint_site = failpoint_site
+        self._alive = alive
+        self._on_drop = on_drop
+        self._on_crash = on_crash
+        self._closed_reason = closed_reason
+        self._shed_reason = shed_reason
+        self._poll_s = poll_s
+        self.stats = {"requests": 0, "dispatches": 0, "shed": 0,
+                      "expired": 0, "cancelled": 0, "stuck": 0}
+        self._stats_lock = threading.Lock()
+        # maxsize counts the wake sentinel too, but one slot of slack on
+        # a bounded queue is noise; <= 0 means unbounded
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max(max_queue, 0))
+        self._results: "Optional[queue.Queue]" = (
+            queue.Queue() if finish is not None else None)
+        self._closed = threading.Event()
+        self._worker = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._worker.start()
+        self._finisher: Optional[threading.Thread] = None
+        if self._results is not None:
+            self._finisher = threading.Thread(
+                target=self._finish_loop, name=f"{name}_fetch", daemon=True)
+            self._finisher.start()
+
+    # -- bookkeeping ---------------------------------------------------------
+    def bump(self, key: str, n: int = 1) -> None:
+        """Thread-safe stats increment (submit counters race the
+        worker's; dict += is not atomic under concurrency).  Owners may
+        grow their own keys (e.g. the coalescers' padding accounting)."""
+        with self._stats_lock:
+            self.stats[key] = self.stats.get(key, 0) + n
+
+    def stats_snapshot(self) -> dict:
+        with self._stats_lock:
+            return dict(self.stats)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed.is_set()
+
+    def queue_depth(self) -> int:
+        """Items currently waiting (approximate; for metrics)."""
+        return self._queue.qsize()
+
+    # -- submission ----------------------------------------------------------
+    def put(self, item: WorkItem) -> None:
+        """Enqueue one item; sheds typed on a full bounded queue and
+        covers the submit-vs-drain race (an item landing after close's
+        drain is failed here, and the wake sentinel re-posted in case
+        the drain ate it)."""
+        try:
+            self._queue.put_nowait(item)
+        except queue.Full:
+            self.bump("shed")
+            degradation.note_shed()
+            raise Overloaded(
+                self._shed_reason if self._shed_reason is not None else
+                f"batch queue full ({self._max_queue} items); "
+                "shedding") from None
+        if self._closed.is_set():
+            drain_pending_futures(self._queue, lambda it: it.future,
+                                  self._closed_reason)
+            self._queue.put(None)
+
+    # -- teardown ------------------------------------------------------------
+    def shutdown(self, join_timeout_s: float = 5.0) -> None:
+        """Stop the worker (and finisher) and fail all queued work typed.
+
+        Joins before draining so nothing is added to a queue after its
+        drain; groups already handed to the finisher resolve normally
+        before it exits."""
+        self._closed.set()
+        try:
+            self._queue.put_nowait(None)  # wake the worker
+        except queue.Full:
+            pass  # worker observes _closed on its next poll tick anyway
+        if self._results is not None:
+            self._results.put(None)  # wake the finisher
+        self._worker.join(timeout=join_timeout_s)
+        if self._finisher is not None:
+            self._finisher.join(timeout=10.0)
+        drain_pending_futures(self._queue, lambda it: it.future,
+                              self._closed_reason)
+        if self._results is not None:
+            drain_pending_futures(
+                self._results, lambda it: [i.future for i in it[0]],
+                self._closed_reason)
+
+    # -- worker --------------------------------------------------------------
+    def _run(self) -> None:
+        while not self._closed.is_set():
+            batch: list = []
+            try:
+                try:
+                    first = self._queue.get(timeout=self._poll_s)
+                except queue.Empty:
+                    # re-check closed/liveness: a full queue can eat the
+                    # shutdown sentinel, so the worker must never block
+                    # forever; coalescers also exit once their voice is
+                    # garbage-collected
+                    if self._alive is not None and not self._alive():
+                        return
+                    continue
+                if first is None:
+                    continue
+                batch = self._gather(first)
+                if self._failpoint_site is not None:
+                    faults.fire(self._failpoint_site)
+                if self._drop_dead:
+                    batch = self._filter_dead(batch)
+                if batch:
+                    self._dispatch_group(batch)
+            except Exception as e:
+                self._crashed(e, batch)
+                return
+
+    def _gather(self, first: WorkItem) -> list:
+        """Collect up to ``max_batch`` key-compatible items, waiting at
+        most ``max_wait`` after the first; incompatible items requeue
+        for the next wave."""
+        batch = [first]
+        wait = self._max_wait
+        if self._degradation_scaled:
+            # a degraded process (level >= 1) collapses the gather
+            # window to zero: no *waiting* for coalescing — but items
+            # already queued still ride along for free (get_nowait
+            # below), otherwise a zero window would force batch-1
+            # dispatches exactly when the queue is deepest
+            wait *= degradation.gather_scale()
+        deadline = time.monotonic() + wait
+        leftovers: list = []
+        while len(batch) < self._max_batch:
+            remaining = deadline - time.monotonic()
+            try:
+                nxt = (self._queue.get(timeout=remaining)
+                       if remaining > 0 else self._queue.get_nowait())
+            except queue.Empty:
+                break
+            if nxt is None:
+                break
+            if self._keyed and nxt.key != first.key:
+                leftovers.append(nxt)  # different shape: next wave
+            else:
+                batch.append(nxt)
+        for item in leftovers:
+            self._queue.put(item)
+        return batch
+
+    def _filter_dead(self, batch: list) -> list:
+        """Deadline-drop-before-pack: expired/cancelled items leave the
+        batch *before* it is packed into a device dispatch — a backed-up
+        queue sheds dead work instead of synthesizing audio nobody is
+        waiting for."""
+        live = []
+        now = time.monotonic()
+        for item in batch:
+            dl = item.deadline
+            if dl is None or dl.alive():
+                live.append(item)
+                continue
+            outcome = "cancelled" if dl.cancelled else "expired"
+            if self._on_drop is not None:
+                self._on_drop(item, outcome, now)
+            if dl.cancelled:
+                self.bump("cancelled")
+                item.future.cancel()  # nobody is reading the result
+            else:
+                self.bump("expired")
+                try_set_exception(
+                    item.future,
+                    DeadlineExceeded("deadline expired in scheduler queue "
+                                     "before device dispatch"))
+        return live
+
+    def _dispatch_group(self, batch: list) -> None:
+        try:
+            ticket = self._dispatch_cb(batch)
+        except Exception as e:
+            for item in batch:
+                try_set_exception(item.future, e)
+            return
+        if ticket is not None and self._results is not None:
+            self._results.put((batch, ticket))
+
+    def _crashed(self, exc: Exception, batch: list) -> None:
+        """Worker-crash containment: fail the gathered batch and
+        everything still queued with a typed error instead of stranding
+        callers, then tell the owner."""
+        log.exception("scheduler worker crashed; failing %d gathered and "
+                      "all queued items", len(batch))
+        self._closed.set()
+        err = SchedulerCrashed(
+            f"scheduler worker crashed: {type(exc).__name__}: {exc}")
+        items = list(batch)
+        while True:
+            try:
+                queued = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if queued is not None:
+                items.append(queued)
+        now = time.monotonic()
+        for item in items:
+            if item.tctx is not None:
+                trace, parent = item.tctx
+                trace.new_span("scheduler-crash", parent=parent,
+                               start=now, end=now,
+                               attrs={"error": str(err)})
+            try_set_exception(item.future, err)
+        if self._on_crash is not None:
+            try:
+                self._on_crash(err, items)
+            except Exception:
+                log.exception("scheduler-crash report hook failed")
+
+    # -- finisher ------------------------------------------------------------
+    def _finish_loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                entry = self._results.get(timeout=self._poll_s)
+            except queue.Empty:
+                if self._alive is not None and not self._alive():
+                    return
+                continue
+            if entry is None:
+                continue
+            items, ticket = entry
+            try:
+                self._finish_cb(items, ticket)
+            except Exception as e:
+                for item in items:
+                    try_set_exception(item.future, e)
+
+
+class SchedulerCrashed(OperationError):
+    """A batching worker loop died on an unexpected exception; every
+    pending/queued item fails with this instead of hanging forever."""
+
+
+class DispatchStuck(OperationError):
+    """A device dispatch exceeded the watchdog; its worker thread was
+    quarantined and the batch's futures failed (a wedged chip raises
+    nothing — only wall clock can convict it)."""
+
+
+# ---------------------------------------------------------------------------
+# hung-dispatch watchdog (the supervised-call half of the core)
+# ---------------------------------------------------------------------------
+
+class _DispatchHelper:
+    """The watchdog path's long-lived device-call thread.
+
+    Each job carries its own context copy, result box, and done event,
+    so a quarantined call's late result lands in a box nobody reads —
+    discarded naturally, without paying a thread spawn on every
+    supervised dispatch.  Only one owner thread submits, one job at a
+    time.
+    """
+
+    __slots__ = ("_jobs", "thread")
+
+    def __init__(self):
+        self._jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.thread = threading.Thread(target=self._loop,
+                                       name="sonata_dispatch",
+                                       daemon=True)
+        self.thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            ctx, fn, box, done = job
+            try:
+                box["out"] = ctx.run(fn)
+            except Exception as e:
+                box["err"] = e
+            finally:
+                done.set()
+
+    def submit(self, ctx, fn):
+        box: dict = {}
+        done = threading.Event()
+        self._jobs.put((ctx, fn, box, done))
+        return box, done
+
+    def retire(self) -> None:
+        """Stop the loop once the in-flight job (if any) returns: a
+        quarantined thread that finally unwedges drains this sentinel
+        and exits instead of blocking forever on an abandoned queue."""
+        self._jobs.put(None)
+
+
+class DispatchSupervisor:
+    """Bound a device call by wall clock; quarantine on conviction.
+
+    One long-lived helper thread serves every supervised dispatch
+    (spawning per dispatch would tax the hot path to guard against the
+    rare wedge).  On timeout the helper is quarantined — left running,
+    renamed, its eventual result discarded, a replacement built on the
+    next call — and ``on_stuck()`` runs before :class:`DispatchStuck`
+    raises so the owner can count, degrade, and report.
+    """
+
+    def __init__(self):
+        self._helper: Optional[_DispatchHelper] = None
+
+    def call(self, fn, timeout: float, *, timeout_env: str,
+             on_stuck: Optional[Callable] = None):
+        import contextvars
+
+        helper = self._helper
+        if helper is None or not helper.thread.is_alive():
+            helper = self._helper = _DispatchHelper()
+        ctx = contextvars.copy_context()
+        box, done = helper.submit(ctx, fn)
+        if not done.wait(timeout):
+            helper.thread.name = "sonata_dispatch_quarantined"
+            self._helper = None
+            helper.retire()  # exits after the wedged call (if ever) ends
+            if on_stuck is not None:
+                on_stuck(helper)
+            raise DispatchStuck(
+                f"device dispatch exceeded the {timeout:g}s watchdog "
+                f"({timeout_env}); worker thread quarantined")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def shutdown(self) -> None:
+        helper, self._helper = self._helper, None
+        if helper is not None:
+            helper.retire()
+            helper.thread.join(timeout=1.0)
+
+
+# ---------------------------------------------------------------------------
+# iteration-level scheduling (SONATA_BATCH_MODE=iteration)
+# ---------------------------------------------------------------------------
+
+class StreamSlot:
+    """One resident stream in an :class:`IterationLoop`."""
+
+    __slots__ = ("deadline", "tctx", "pending", "retired", "failed",
+                 "joined_at")
+
+    def __init__(self, deadline: Optional[Deadline], tctx):
+        self.deadline = deadline
+        self.tctx = tctx
+        #: submitted-but-undispatched items, FIFO
+        self.pending: list = []
+        self.retired = False
+        self.failed: Optional[Exception] = None
+        self.joined_at = time.monotonic()
+
+
+class _Flight:
+    """One dispatched iteration crossing the dispatch→finish boundary.
+
+    ``attrs`` is the single attribution dict both the trace span and
+    ``scope.note_dispatch`` consume — frozen at the dispatch phase so
+    the two surfaces cannot disagree across the thread split."""
+
+    __slots__ = ("items", "n", "b", "attrs", "t0", "err", "ticket",
+                 "results")
+
+    def __init__(self, items: list, n: int, b: int):
+        self.items = items
+        self.n = n
+        self.b = b
+        self.attrs: dict = {}
+        self.t0 = 0.0
+        self.err: Optional[Exception] = None
+        self.ticket = None
+        self.results = None
+
+
+class IterationLoop:
+    """Orca-style persistent per-device decode loop.
+
+    Dispatch-granular batching gathers a wave, dispatches, disbands —
+    every wave re-pays the gather window, and a multi-request wave pads
+    to the one canonical batch size so the compiled-shape set stays
+    {1, max}.  This loop instead keeps the batch *running*: streams
+    **join** at iteration boundaries (after their encode lands), their
+    window decodes ride each iteration alongside every other resident
+    stream's, and they **retire** when the stream ends — no wave gather,
+    no wait window, and the batch axis steps through the *graduated*
+    bucket ladder (1, 2, 4, 8, ...) because the warmup lattice
+    enumerates every rung (``lattice_shapes`` grows the iteration-mode
+    shapes), so occupancy-sized dispatches stay recompile-free where the
+    wave path had to overpad to the canonical max.
+
+    Owner hooks (one- or two-phase):
+
+    - ``dispatch(key, payloads, batch_bucket) -> (results, attrs)`` —
+      one-phase: run one iteration's device call for ``len(payloads)``
+      live rows padded to ``batch_bucket``, returning one result per
+      live row plus attribution attrs (``frame_bucket``, ``compile``,
+      ``voice``...).  Failures fail only that iteration's rows; the
+      affected streams surface the error through their futures and
+      retire through their consumers' normal teardown.
+    - with ``finish=`` (two-phase): ``dispatch`` instead *enqueues* the
+      device program and returns ``(ticket, attrs)`` without blocking
+      on results; ``finish(ticket) -> results`` performs the blocking
+      fetch.  When pipelining is on (:func:`resolve_iter_pipeline`),
+      the worker dispatches iteration k+1 while a finisher thread
+      blocks on iteration k's fetch — at most one iteration runs ahead
+      of the fetch, so occupancy decisions stay at most one boundary
+      stale.  Attribution attrs and padding accounting are frozen at
+      the *dispatch* phase (the scope/span never-disagree contract
+      survives the thread split); spans and ``scope.note_dispatch``
+      land at the *finish* boundary, where the duration is known.
+
+    Serving-plane composition: every iteration records a shared
+    ``dispatch`` span (``mode=iteration``, peer request ids, padding
+    ratio) into each rider's trace and feeds
+    :func:`sonata_tpu_torch.serving.scope.note_dispatch` so padding-waste
+    accounting is per iteration; ``start_draining`` retires the loop at
+    an iteration boundary (no new joins, resident work finishes);
+    deadline expiry mid-flight fails only the expired stream's rows.
+    """
+
+    #: iterations allowed past the one being fetched: 1 dispatched-ahead
+    #: + 1 in fetch.  Deeper pipelining would dispatch the whole pending
+    #: backlog before the first fetch resolves, making every occupancy
+    #: decision stale.
+    PIPELINE_DEPTH = 2
+
+    def __init__(self, dispatch: Callable, *, max_batch: int,
+                 name: str = "sonata_iteration",
+                 attrs: Optional[dict] = None,
+                 idle_poll_s: float = 0.5,
+                 finish: Optional[Callable] = None,
+                 pipeline: Optional[bool] = None):
+        self._dispatch_cb = dispatch
+        self._finish_cb = finish
+        self._max_batch = max(int(max_batch), 1)
+        self._attrs = dict(attrs or {})
+        self._idle_poll = idle_poll_s
+        #: submissions and joins land here; the loop admits them at
+        #: iteration boundaries
+        self._inbox: "queue.Queue" = queue.Queue()
+        self._streams: "dict[int, StreamSlot]" = {}
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._closed = threading.Event()
+        self._draining = threading.Event()
+        self.stats = {"requests": 0, "dispatches": 0, "iterations": 0,
+                      "joined": 0, "retired": 0, "expired": 0,
+                      "rows": 0, "padded_rows": 0, "fetch_overlapped": 0}
+        self._stats_lock = threading.Lock()
+        # pipelined fetch (two-phase owners only): the finisher thread
+        # blocks on iteration k's result fetch while the worker
+        # dispatches k+1; the semaphore bounds how far dispatch runs
+        # ahead.  _unsettled counts dispatched-but-unfinished
+        # iterations (the fetch_overlapped accounting).
+        self._pipeline = (finish is not None
+                          and (resolve_iter_pipeline()
+                               if pipeline is None else bool(pipeline)))
+        self._fetch_q: "Optional[queue.Queue]" = None
+        self._finisher: Optional[threading.Thread] = None
+        self._inflight_sem = threading.Semaphore(self.PIPELINE_DEPTH)
+        self._unsettled = 0
+        #: set (before the crash drain) when the finisher died — the
+        #: worker re-checks it after every fetch-queue put, so a flight
+        #: racing the crash drain can never sit in a queue nobody reads
+        self._finisher_dead = False
+        if self._pipeline:
+            self._fetch_q = queue.Queue()
+            self._finisher = threading.Thread(
+                target=self._finish_loop, name=f"{name}_fetch",
+                daemon=True)
+            self._finisher.start()
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.stats[key] += n
+
+    def stats_snapshot(self) -> dict:
+        with self._stats_lock:
+            return dict(self.stats)
+
+    # -- stream lifecycle ----------------------------------------------------
+    def join(self, deadline: Optional[Deadline] = None,
+             trace_ctx=None) -> int:
+        """Register one stream with the running loop; its submits ride
+        iterations from the next boundary on.  Refused typed while
+        draining/closed (a deploy is not a hang)."""
+        if self._closed.is_set() or self._draining.is_set():
+            raise OperationError(
+                "iteration loop is draining; stream refused")
+        with self._lock:
+            self._next_id += 1
+            handle = self._next_id
+            self._streams[handle] = StreamSlot(
+                deadline, trace_ctx if trace_ctx is not None
+                else tracing.current())
+        # join-vs-drain-exit race: the loop may have observed an empty
+        # stream set and exited between our check and the registration
+        # (_run's exit path sets _closed) — a stream resident in a dead
+        # loop would hang its consumer, so re-check and refuse typed
+        if self._closed.is_set():
+            with self._lock:
+                self._streams.pop(handle, None)
+            raise OperationError(
+                "iteration loop is draining; stream refused")
+        self._bump("joined")
+        return handle
+
+    def submit(self, handle: int, key, payload) -> "Future":
+        """Queue one row of work for the stream; resolves with that
+        row's device result after the iteration it rides.  The ambient
+        trace context is captured here (the submitting thread's) so the
+        per-iteration dispatch span lands in the right trace; rows
+        submitted off-trace fall back to the stream's join-time
+        context."""
+        item = WorkItem(payload, key=key, tctx=tracing.current())
+        reason = "iteration loop closed (voice unloaded)"
+        if self._closed.is_set():
+            try_set_exception(item.future, OperationError(reason))
+            return item.future
+        self._inbox.put(("work", handle, item))
+        # submit-vs-close race (the BatchingCore.put contract): close()
+        # — or the drain-exit path, which also sets _closed — may have
+        # drained the inbox between our check and our put; re-drain so
+        # this future can never be left unresolved for a caller blocked
+        # in fut.result()
+        if self._closed.is_set():
+            self._drain_inbox(reason)
+        return item.future
+
+    def retire(self, handle: int) -> None:
+        """The stream ended (or was abandoned): it leaves the batch at
+        the next iteration boundary; any rows still pending are
+        cancelled (an abandoned stream wastes bounded device work)."""
+        if self._closed.is_set():
+            return
+        self._inbox.put(("retire", handle, None))
+
+    # -- lifecycle -----------------------------------------------------------
+    def start_draining(self) -> None:
+        """Stop admitting joins; the loop exits at an iteration boundary
+        once resident streams finish (the SIGTERM drain path: readiness
+        is already off, in-flight streams keep their riders)."""
+        self._draining.set()
+        self._inbox.put(None)
+
+    def close(self, join_timeout_s: float = 10.0) -> None:
+        """Terminal: fail everything pending typed and stop the loop.
+
+        Iterations already handed to the finisher resolve normally (the
+        BatchingCore.shutdown contract); only if the finisher cannot
+        drain (a wedged fetch) are its remaining entries failed typed."""
+        self._closed.set()
+        self._draining.set()
+        self._inbox.put(None)
+        self._thread.join(timeout=join_timeout_s)
+        reason = "iteration loop closed (voice unloaded)"
+        if self._finisher is not None:
+            self._fetch_q.put(None)  # wake for the closed re-check
+            self._finisher.join(timeout=join_timeout_s)
+            self._fail_unsettled(OperationError(reason))
+        with self._lock:
+            slots = list(self._streams.values())
+            self._streams.clear()
+        for slot in slots:
+            for item in slot.pending:
+                try_set_exception(item.future, OperationError(reason))
+            slot.pending.clear()
+        self._drain_inbox(reason)
+
+    def _fail_unsettled(self, err: Exception) -> None:
+        """Fail every dispatched-but-unfetched iteration still sitting
+        in the fetch queue (finisher gone or wedged)."""
+        if self._fetch_q is None:
+            return
+        while True:
+            try:
+                entry = self._fetch_q.get_nowait()
+            except queue.Empty:
+                return
+            if entry is None:
+                continue
+            for item in entry.items:
+                try_set_exception(item.future, err)
+
+    def _drain_inbox(self, reason: str) -> None:
+        drain_pending_futures(
+            self._inbox,
+            lambda e: (e[2].future if e[0] == "work" else []), reason)
+
+    @property
+    def resident_streams(self) -> int:
+        with self._lock:
+            return len(self._streams)
+
+    # -- the loop ------------------------------------------------------------
+    def _run(self) -> None:
+        try:
+            while not self._closed.is_set():
+                try:
+                    has_work = self._admit_inbox()
+                    if self._closed.is_set():
+                        return
+                    if not has_work:
+                        if self._draining.is_set() and not self._streams:
+                            return  # drained at an iteration boundary
+                        continue
+                    self._expire_dead()
+                    self._iterate()
+                except Exception:
+                    # containment: one bad iteration must not kill the
+                    # resident loop — affected rows already failed via
+                    # their futures; log and keep serving
+                    log.exception("iteration loop error (loop continues)")
+        finally:
+            # EVERY exit (close, drain-complete) marks the loop closed
+            # and fails anything that raced into the inbox — submit/join
+            # re-check _closed, so nothing can queue work into a dead
+            # loop and hang its consumer.  Resident slots' pending rows
+            # fail too (close() normally drains them, but a
+            # finisher-crash exit has no close() to rely on).  Rows
+            # already dispatched keep their finish boundary: the
+            # finisher drains its queue before exiting, so in-flight
+            # fetches resolve with real results even across a drain.
+            self._closed.set()
+            reason = "iteration loop closed (voice unloaded)"
+            with self._lock:
+                slots = list(self._streams.values())
+            for slot in slots:
+                for item in slot.pending:
+                    try_set_exception(item.future, OperationError(reason))
+                slot.pending.clear()
+            self._drain_inbox(reason)
+            if self._finisher_dead:
+                self._fail_unsettled(SchedulerCrashed(
+                    "iteration finisher crashed"))
+
+    def _admit_inbox(self) -> bool:
+        """Iteration boundary: admit queued submits/retires.  Blocks on
+        the inbox only when no work is pending (the persistent loop is
+        idle-blocked, not spinning).  Returns whether any stream has
+        pending rows."""
+        block = not self._has_pending()
+        first = True
+        while True:
+            try:
+                entry = (self._inbox.get(timeout=self._idle_poll)
+                         if block and first else self._inbox.get_nowait())
+            except queue.Empty:
+                break
+            first = False
+            if entry is None:
+                continue
+            kind, handle, item = entry
+            with self._lock:
+                slot = self._streams.get(handle)
+            if kind == "work":
+                if slot is None or slot.retired:
+                    try_set_exception(item.future, OperationError(
+                        "stream is not resident in the iteration loop"))
+                    continue
+                if item.tctx is None:
+                    item.tctx = slot.tctx
+                slot.pending.append(item)
+                self._bump("requests")
+            else:  # retire
+                if slot is not None:
+                    slot.retired = True
+        self._reap_retired()
+        return self._has_pending()
+
+    def _has_pending(self) -> bool:
+        with self._lock:
+            return any(s.pending for s in self._streams.values())
+
+    def _reap_retired(self) -> None:
+        with self._lock:
+            gone = [h for h, s in self._streams.items() if s.retired]
+            for h in gone:
+                slot = self._streams.pop(h)
+                for item in slot.pending:
+                    item.future.cancel()  # abandoned mid-stream
+        if gone:
+            self._bump("retired", len(gone))
+
+    def _expire_dead(self) -> None:
+        """A stream whose deadline expired fails — alone.  Its pending
+        rows fail typed before the next dispatch; every other resident
+        stream keeps riding."""
+        with self._lock:
+            dead = [(h, s) for h, s in self._streams.items()
+                    if s.deadline is not None and not s.deadline.alive()]
+            for h, _ in dead:
+                self._streams.pop(h)
+        for _h, slot in dead:
+            err = (OperationError("stream cancelled")
+                   if slot.deadline.cancelled else
+                   DeadlineExceeded("stream deadline expired in the "
+                                    "iteration loop"))
+            for item in slot.pending:
+                try_set_exception(item.future, err)
+            slot.pending.clear()
+            slot.failed = err
+            self._bump("expired")
+            # an expired stream still LEFT the batch: count it retired
+            # too, so joined == retired holds whenever the loop is empty
+            # (the book-balance invariant the smokes assert) — "expired"
+            # records the reason, not a third lifecycle state.  The
+            # consumer's own retire() later finds no slot and no-ops.
+            self._bump("retired")
+
+    def _pick_rows(self):
+        """One iteration's rows: the oldest-waiting key, FIFO across
+        streams, up to ``max_batch``.
+
+        Selection is a k-way merge by head timestamp: per-slot pending
+        is FIFO (t_submit monotone within a slot), so each slot's
+        key-matching subsequence is already time-sorted and the
+        globally-oldest selection emerges from a size-S heap of slot
+        cursors — O(S + B log S + skipped) instead of materializing and
+        sorting every resident stream's whole pending deque each
+        iteration.  Pinned equivalent to the sort-based selection by
+        tests/test_batching.py on randomized workloads."""
+        with self._lock:
+            oldest_h, oldest_t = None, None
+            for h, s in self._streams.items():
+                p = s.pending
+                if p and (oldest_t is None or p[0].t_submit < oldest_t):
+                    oldest_t, oldest_h = p[0].t_submit, h
+            if oldest_h is None:
+                return None, []
+            key = self._streams[oldest_h].pending[0].key
+
+            def next_match(p: list, start: int) -> int:
+                for j in range(start, len(p)):
+                    if p[j].key == key:
+                        return j
+                return -1
+
+            heap = []
+            for h, s in self._streams.items():
+                j = next_match(s.pending, 0)
+                if j >= 0:
+                    heap.append((s.pending[j].t_submit, h, j))
+            heapq.heapify(heap)
+            rows: list = []
+            taken: "dict[int, set]" = {}
+            while heap and len(rows) < self._max_batch:
+                _t, h, j = heapq.heappop(heap)
+                p = self._streams[h].pending
+                rows.append((h, p[j]))
+                taken.setdefault(h, set()).add(j)
+                nj = next_match(p, j + 1)
+                if nj >= 0:
+                    heapq.heappush(heap, (p[nj].t_submit, h, nj))
+            for h, idxs in taken.items():
+                s = self._streams[h]
+                s.pending = [it for j, it in enumerate(s.pending)
+                             if j not in idxs]
+            return key, rows
+
+    def _acquire_slot(self) -> bool:
+        """Bound how far dispatch runs ahead of the fetch; stays
+        responsive to close (a wedged fetch must not wedge close)."""
+        while not self._inflight_sem.acquire(timeout=self._idle_poll):
+            if self._closed.is_set():
+                return False
+        return True
+
+    def _iterate(self) -> None:
+        key, rows = self._pick_rows()
+        if not rows:
+            return
+        items = [item for _h, item in rows]
+        try:
+            self._iterate_picked(key, rows, items)
+        except Exception as e:
+            # worker-crash containment: once rows are picked they leave
+            # their slots, so an infrastructure fault past this point
+            # (not a dispatch error — those are handled inside) must
+            # fail them typed instead of stranding their consumers in
+            # fut.result(); already-resolved futures no-op.  The loop
+            # itself survives (the _run catch logs and continues).
+            err = SchedulerCrashed(
+                f"iteration worker crashed: {type(e).__name__}: {e}")
+            for item in items:
+                try_set_exception(item.future, err)
+            raise
+
+    def _iterate_picked(self, key, rows: list, items: list) -> None:
+        n = len(rows)
+        # graduated bucket ladder: occupancy pads only to the next batch
+        # bucket (lattice-warmed), not the canonical max — the padding
+        # waste the dispatch-granular wave rule pays is the point of
+        # this mode
+        b = min(bucket_for(n, BATCH_BUCKETS), self._max_batch)
+        pipelined = self._pipeline
+        if pipelined and not self._acquire_slot():
+            # closed while waiting for pipeline headroom: the picked
+            # rows must still resolve
+            err = OperationError("iteration loop closed (voice unloaded)")
+            for item in items:
+                try_set_exception(item.future, err)
+            return
+        with self._stats_lock:
+            overlapped = self._unsettled > 0
+        flight = _Flight(items, n, b)
+        flight.t0 = time.monotonic()
+        try:
+            if self._finish_cb is not None:
+                flight.ticket, extra = self._dispatch_cb(
+                    key, [i.payload for i in items], b)
+            else:
+                flight.results, extra = self._dispatch_cb(
+                    key, [i.payload for i in items], b)
+            flight.attrs.update(extra or {})
+        except Exception as e:
+            flight.err = e
+        try:
+            # DISPATCH-phase accounting: the stats counters and the
+            # attribution attrs (padding fields included) freeze here,
+            # on the worker thread — the finish phase reuses this exact
+            # dict for the span AND scope.note_dispatch, so per-
+            # iteration scope/bucket rows can never disagree with the
+            # span attrs even when dispatch and finish run on
+            # different threads (the never-disagree invariant)
+            self._bump("iterations")
+            self._bump("dispatches")
+            self._bump("rows", n)
+            self._bump("padded_rows", b - n)
+            if pipelined and overlapped and flight.err is None:
+                # this dispatch was issued while a previous iteration's
+                # fetch was still in flight: the overlap the pipeline
+                # exists for (bench row `iter_fetch_overlap`)
+                self._bump("fetch_overlapped")
+            attrs = flight.attrs
+            traced = [i for i in items if i.tctx is not None]
+            attrs.update(self._attrs)
+            attrs.update(
+                mode="iteration", batch_bucket=b, rows=n,
+                padding_rows=b - n, padding_ratio=round((b - n) / b, 3))
+            if traced:
+                attrs.setdefault("dispatch_id", tracing.new_id())
+                attrs["batch_size"] = n
+                attrs["request_ids"] = [i.tctx[0].request_id
+                                        for i in traced]
+        except Exception:
+            log.exception("iteration attribution failed (rows still "
+                          "resolve)")
+        if pipelined and flight.err is None:
+            with self._stats_lock:
+                self._unsettled += 1
+            self._fetch_q.put(flight)
+            # put-vs-finisher-crash race: the crash containment may have
+            # drained the fetch queue BEFORE this put landed — with the
+            # finisher dead nobody would ever settle this flight, so
+            # re-check and drain (idempotent: resolved futures no-op)
+            if self._finisher_dead:
+                self._fail_unsettled(SchedulerCrashed(
+                    "iteration finisher crashed"))
+            return
+        try:
+            self._settle(flight)
+        finally:
+            if pipelined:
+                self._inflight_sem.release()
+
+    def _settle(self, flight: "_Flight") -> None:
+        """The FINISH boundary: run the blocking fetch (two-phase
+        owners), record spans + scope accounting with the dispatch-phase
+        attrs, resolve the futures.  Runs on the finisher thread when
+        pipelined, inline on the worker otherwise."""
+        items, n = flight.items, flight.n
+        err, results = flight.err, flight.results
+        if err is None and self._finish_cb is not None:
+            try:
+                results = self._finish_cb(flight.ticket)
+            except Exception as e:
+                err = e
+        t1 = time.monotonic()
+        attrs = flight.attrs
+        try:
+            # bookkeeping + attribution must never strand the dequeued
+            # rows: once picked, the futures below ALWAYS resolve, so a
+            # scope/tracing-plane fault costs observability, not a
+            # consumer blocked forever in fut.result()
+            if err is not None:
+                attrs["error"] = f"{type(err).__name__}: {err}"
+            else:
+                # per-iteration dispatch-efficiency accounting: one
+                # iteration counts once, with the same attrs dict its
+                # trace span carries (never-disagree, across threads)
+                scope.note_dispatch(t1 - flight.t0, attrs)
+            # spans BEFORE resolving futures: a rider may export its
+            # trace the instant its future resolves, and the iteration
+            # attribution must already be there
+            for item in items:
+                if item.tctx is None:
+                    continue
+                trace, parent = item.tctx
+                trace.new_span("queue-wait", parent=parent,
+                               start=item.t_submit, end=flight.t0)
+                trace.new_span("dispatch", parent=parent,
+                               start=flight.t0, end=t1, attrs=attrs)
+        except Exception:
+            log.exception("iteration attribution failed (rows still "
+                          "resolve)")
+        if err is not None or results is None or len(results) != n:
+            if err is None:
+                err = OperationError(
+                    f"iteration dispatch returned "
+                    f"{0 if results is None else len(results)} results "
+                    f"for {n} rows (shape corrupted)")
+            for item in items:
+                try_set_exception(item.future, err)
+            return
+        for item, out in zip(items, results):
+            try_set_result(item.future, out)
+
+    # -- finisher (pipelined fetch) ------------------------------------------
+    def _finish_loop(self) -> None:
+        flight: "Optional[_Flight]" = None
+        try:
+            while True:
+                try:
+                    flight = self._fetch_q.get(timeout=self._idle_poll)
+                except queue.Empty:
+                    if self._closed.is_set():
+                        return  # drained: every dispatched row settled
+                    continue
+                if flight is None:
+                    continue
+                try:
+                    self._settle(flight)
+                finally:
+                    with self._stats_lock:
+                        self._unsettled -= 1
+                    self._inflight_sem.release()
+                flight = None
+        except Exception as e:
+            self._finisher_crashed(e, flight)
+
+    def _finisher_crashed(self, exc: Exception,
+                          flight: "Optional[_Flight]") -> None:
+        """Finisher-crash containment: with the fetch thread gone, BOTH
+        in-flight iterations (the one mid-finish and the one dispatched
+        behind it) fail typed instead of stranding their consumers; the
+        loop closes and the worker exits through its own finally."""
+        log.exception("iteration finisher crashed; failing in-flight "
+                      "iterations")
+        self._finisher_dead = True  # BEFORE the drain: the worker's
+        # post-put re-check must see it (either side then drains)
+        self._closed.set()
+        err = SchedulerCrashed(
+            f"iteration finisher crashed: {type(exc).__name__}: {exc}")
+        if flight is not None:
+            for item in flight.items:
+                try_set_exception(item.future, err)
+        self._fail_unsettled(err)
+        self._inbox.put(None)   # wake the worker so it exits promptly
+        self._inflight_sem.release()  # unblock a worker awaiting headroom

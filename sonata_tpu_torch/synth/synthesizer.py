@@ -1,11 +1,14 @@
 """Speech synthesis orchestration: lazy / batched / realtime streams.
 
 Port of ``sonata_tpu/synth/synthesizer.py`` (analogue of the reference's
-``crates/sonata/synth/src/lib.rs``), without output configs, tracing,
-failpoints or a replica pool:
+``crates/sonata/synth/src/lib.rs``), without the text stage's tracing span
+and failpoint, the streams' first-byte timestamps or a replica pool (the
+serving frontends that read them are not ported yet):
 
-- :class:`SpeechSynthesizer` wraps a :class:`~sonata_tpu_torch.core.Model`
-  and delegates the model protocol.
+- :class:`SpeechSynthesizer` wraps a :class:`~sonata_tpu_torch.core.Model`,
+  delegates the model protocol and post-processes every result with an
+  optional :class:`~sonata_tpu_torch.synth.output.AudioOutputConfig`
+  (rate, volume, pitch, appended silence, stream normalization).
 - **Lazy** — phonemize once, synthesize one sentence per ``next()``.
 - **Batched** — all sentences through ``Model.speak_batch``.
 - **Realtime** — a producer thread streams chunks through a queue, with the
@@ -23,6 +26,7 @@ from typing import Iterator, Optional, Union
 
 from ..audio import Audio, AudioSamples, write_wave_samples_to_file
 from ..core import Model, OperationError, Phonemes
+from .output import AudioOutputConfig
 
 _POOL: Optional[ThreadPoolExecutor] = None
 _POOL_LOCK = threading.Lock()
@@ -38,13 +42,6 @@ def synthesis_thread_pool() -> ThreadPoolExecutor:
                     max_workers=4 * (os.cpu_count() or 1),
                     thread_name_prefix="sonata_synth")
     return _POOL
-
-
-def _check_output_config(output_config) -> None:
-    if output_config is not None:
-        raise OperationError(
-            "output configs are not supported by the PyTorch port yet; "
-            "pass output_config=None")
 
 
 class SpeechSynthesizer:
@@ -89,28 +86,82 @@ class SpeechSynthesizer:
     def set_fallback_synthesis_config(self, cfg) -> None:
         self.model.set_fallback_synthesis_config(cfg)
 
+    def close(self) -> None:
+        """Release the wrapped model's resources (its engines' threads)."""
+        close = getattr(self.model, "close", None)
+        if close is not None:
+            close()
+
+    def dispatch_stats(self):
+        """The model's dispatch policy decision and its streaming engines'
+        counters, or None for a model without a dispatch policy."""
+        stats = getattr(self.model, "dispatch_stats", None)
+        return stats() if stats is not None else None
+
+    # -- processing helper ---------------------------------------------------
+    @staticmethod
+    def _post_process(audio: Audio,
+                      output_config: Optional[AudioOutputConfig]) -> Audio:
+        if output_config is None:
+            return audio
+        processed = output_config.apply(audio.samples,
+                                        audio.info.sample_rate)
+        if output_config.stream_normalization == "global":
+            # one fixed gain for every chunk of the stream, seam-free (the
+            # default keeps the reference's per-chunk peak normalization,
+            # samples.rs:51-75)
+            processed.peak_normalize = False
+        return Audio(processed, audio.info, inference_ms=audio.inference_ms)
+
+    @staticmethod
+    def _check_output_config(output_config) -> None:
+        """Fail fast on a wrong positional: the config is used mid-stream,
+        where a type error would surface from a worker thread."""
+        if output_config is not None and not isinstance(
+                output_config, AudioOutputConfig):
+            raise OperationError(
+                "output_config must be an AudioOutputConfig or None, got "
+                f"{type(output_config).__name__} (chunk_size is a keyword "
+                "argument: synthesize_streamed(text, chunk_size=..., "
+                "chunk_padding=...))")
+
     # -- modes ---------------------------------------------------------------
-    def synthesize_lazy(self, text: str,
-                        output_config=None) -> "SpeechStreamLazy":
-        _check_output_config(output_config)
-        return SpeechStreamLazy(self, self.phonemize_text(text))
+    def synthesize_lazy(
+        self, text: str,
+        output_config: Optional[AudioOutputConfig] = None,
+    ) -> "SpeechStreamLazy":
+        self._check_output_config(output_config)
+        return SpeechStreamLazy(self, self.phonemize_text(text), output_config)
 
-    def synthesize_parallel(self, text: str,
-                            output_config=None) -> "SpeechStreamBatched":
-        _check_output_config(output_config)
-        return SpeechStreamBatched(self, self.phonemize_text(text))
+    def synthesize_parallel(
+        self, text: str,
+        output_config: Optional[AudioOutputConfig] = None,
+    ) -> "SpeechStreamBatched":
+        self._check_output_config(output_config)
+        return SpeechStreamBatched(self, self.phonemize_text(text),
+                                   output_config)
 
-    def synthesize_streamed(self, text: str, output_config=None,
-                            chunk_size: int = 45,
-                            chunk_padding: int = 3) -> "RealtimeSpeechStream":
-        _check_output_config(output_config)
+    def synthesize_streamed(
+        self, text: str,
+        output_config: Optional[AudioOutputConfig] = None,
+        chunk_size: int = 45, chunk_padding: int = 3,
+        deadline=None,
+    ) -> "RealtimeSpeechStream":
+        """``deadline``: optional per-request
+        :class:`~sonata_tpu_torch.serving.deadlines.Deadline`, carried to
+        the model's streaming path (the iteration loop fails this stream
+        alone once it expires)."""
+        self._check_output_config(output_config)
         if not self.model.supports_streaming_output():
             raise OperationError("model does not support streamed synthesis")
         return RealtimeSpeechStream(self, self.phonemize_text(text),
-                                    chunk_size, chunk_padding)
+                                    output_config, chunk_size, chunk_padding,
+                                    deadline=deadline)
 
-    def synthesize_to_file(self, path: Union[str, Path], text: str,
-                           output_config=None) -> None:
+    def synthesize_to_file(
+        self, path: Union[str, Path], text: str,
+        output_config: Optional[AudioOutputConfig] = None,
+    ) -> None:
         """Drain the batched stream and write one WAV
         (``synth/lib.rs:170-198``)."""
         samples = AudioSamples()
@@ -125,9 +176,11 @@ class SpeechSynthesizer:
 class SpeechStreamLazy:
     """One sentence per ``next()`` (``synth/lib.rs:282-307``)."""
 
-    def __init__(self, synth: SpeechSynthesizer, phonemes: Phonemes):
+    def __init__(self, synth: SpeechSynthesizer, phonemes: Phonemes,
+                 output_config: Optional[AudioOutputConfig]):
         self._synth = synth
         self._sentences = list(phonemes)
+        self._output_config = output_config
         self._idx = 0
 
     def __iter__(self) -> Iterator[Audio]:
@@ -138,16 +191,21 @@ class SpeechStreamLazy:
             raise StopIteration
         sentence = self._sentences[self._idx]
         self._idx += 1
-        return self._synth.model.speak_one_sentence(sentence)
+        return self._synth._post_process(
+            self._synth.model.speak_one_sentence(sentence),
+            self._output_config)
 
 
 class SpeechStreamBatched:
     """All sentences in padded device batches, computed at construction
     (``synth/lib.rs:310-325``)."""
 
-    def __init__(self, synth: SpeechSynthesizer, phonemes: Phonemes):
+    def __init__(self, synth: SpeechSynthesizer, phonemes: Phonemes,
+                 output_config: Optional[AudioOutputConfig]):
         sentences = list(phonemes)
-        self._results = synth.model.speak_batch(sentences) if sentences else []
+        audios = synth.model.speak_batch(sentences) if sentences else []
+        self._results = [synth._post_process(a, output_config)
+                         for a in audios]
         self._idx = 0
 
     def __iter__(self) -> Iterator[Audio]:
@@ -168,12 +226,14 @@ class RealtimeSpeechStream:
     """Pipelined chunked streaming (``synth/lib.rs:335-430``).
 
     A producer task on the shared pool walks the sentences, calls the
-    model's ``stream_synthesis`` and pushes each chunk through a queue; the
-    consumer is this iterator.  Chunk size grows by the number of chunks
-    already produced when a new sentence starts (``:351-356``)."""
+    model's ``stream_synthesis``, post-processes each chunk and pushes it
+    through a queue; the consumer is this iterator.  Chunk size grows by
+    the number of chunks already produced when a new sentence starts
+    (``:351-356``)."""
 
     def __init__(self, synth: SpeechSynthesizer, phonemes: Phonemes,
-                 chunk_size: int, chunk_padding: int):
+                 output_config: Optional[AudioOutputConfig],
+                 chunk_size: int, chunk_padding: int, deadline=None):
         self._queue: "queue.Queue" = queue.Queue()
         self._cancelled = threading.Event()
 
@@ -182,11 +242,15 @@ class RealtimeSpeechStream:
                 chunks_done = 1
                 for sentence in phonemes:
                     size = min(chunk_size * chunks_done, 1024)
-                    for chunk in synth.model.stream_synthesis(
-                            sentence, size, chunk_padding):
+                    args = (sentence, size, chunk_padding)
+                    stream = (synth.model.stream_synthesis(*args)
+                              if deadline is None else
+                              synth.model.stream_synthesis(*args, deadline))
+                    for chunk in stream:
                         if self._cancelled.is_set():
                             return
-                        self._queue.put(chunk)
+                        self._queue.put(synth._post_process(chunk,
+                                                            output_config))
                         chunks_done += 1
             except Exception as e:  # forwarded, then the stream ends
                 self._queue.put(e)

@@ -25,3 +25,14 @@ def pad_to(seq, length: int, value=0):
     """Pad a python list to ``length``."""
     return list(seq) + [value] * (length - len(seq))
 
+
+def canonical_dispatch_batch(max_batch: int) -> int:
+    """Canonical batch size for a coalesced dispatch group.
+
+    The stream coalescers pad every multi-request group to ONE batch
+    size so the shapes each stage sees are exactly {1, max} — that size
+    must be a :data:`BATCH_BUCKETS` bucket.  Used by
+    :mod:`.dispatch_policy` when deriving coalescer knobs.
+    """
+    return bucket_for(max(int(max_batch), 1), BATCH_BUCKETS)
+

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: nothing in ``sonata_tpu_torch/`` or in
-``chip_smoke.py`` (nor ``tools/torch_kernel_ab.py``, which runs beside it
-on the card) imports jax or the JAX package.
+``chip_smoke.py`` (nor the port's tools: ``tools/torch_kernel_ab.py`` and
+``tools/torch_stream_timeline.py``, which run beside it on the card, and
+``tools/torch_port_copy.py``) imports jax or the JAX package.
 
 jax is checked by an AST scan, not through ``sys.modules``: a host may
 import jax at interpreter start-up on its own.  The JAX package is checked
@@ -8,6 +9,7 @@ both ways.
 """
 
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -19,8 +21,10 @@ PORT = REPO / "sonata_tpu_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "tools" / "torch_kernel_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_kernel_ab.py",
+        REPO / "tools" / "torch_stream_timeline.py",
+        REPO / "tools" / "torch_port_copy.py"]
 
 
 def _imported_modules(path: Path):
@@ -55,6 +59,12 @@ def test_scan_sees_the_whole_package():
                    "sonata_tpu_torch/models/tashkeel_cbhg.py",
                    "sonata_tpu_torch/models/import_onnx.py",
                    "sonata_tpu_torch/text/rule_g2p_de.py",
+                   "sonata_tpu_torch/serving/scope.py",
+                   "sonata_tpu_torch/synth/batching.py",
+                   "sonata_tpu_torch/synth/scheduler.py",
+                   "sonata_tpu_torch/synth/output.py",
+                   "sonata_tpu_torch/native/build.py",
+                   "sonata_tpu_torch/utils/dispatch_policy.py",
                    "chip_smoke.py"):
         assert needed in files
     assert _forbidden("jax.numpy") and _forbidden("sonata_tpu.models")
@@ -69,7 +79,11 @@ def test_importing_the_port_leaves_the_jax_package_unloaded():
         "sonata_tpu_torch.ops, sonata_tpu_torch.models.decode_opts, "
         "sonata_tpu_torch.text.tashkeel, "
         "sonata_tpu_torch.models.tashkeel_cbhg, "
-        "sonata_tpu_torch.models.import_onnx\n"
+        "sonata_tpu_torch.models.import_onnx, sonata_tpu_torch.serving, "
+        "sonata_tpu_torch.synth.batching, sonata_tpu_torch.synth.scheduler, "
+        "sonata_tpu_torch.synth.output, sonata_tpu_torch.native, "
+        "sonata_tpu_torch.utils.dispatch_policy, "
+        "sonata_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m == 'sonata_tpu' "
         "or m.startswith('sonata_tpu.')]\n"
         "print(bad)\n"
@@ -87,3 +101,34 @@ def test_kernel_sources_ship_with_the_package():
     text = (REPO / "pyproject.toml").read_text(encoding="utf-8")
     assert '"sonata_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", ' \
         '"data/*.npz"]' in text
+    assert '"sonata_tpu_torch.native" = ["src/*.cpp"]' in text
+    assert (PORT / "native" / "src" / "sonata_dsp.cpp").is_file()
+
+
+def _copy_tool():
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_copy", REPO / "tools" / "torch_port_copy.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("rel", _copy_tool().COPIES)
+def test_scripted_copy_equals_its_original(rel):
+    """A copied jax-free module is its JAX original with the
+    ``sonata_tpu.`` names re-pointed (``tools/torch_port_copy.py``), and
+    nothing else: neither side drifted since the copy was made."""
+    tool = _copy_tool()
+    original = (REPO / "sonata_tpu" / rel).read_text(encoding="utf-8")
+    copy = (PORT / rel).read_text(encoding="utf-8")
+    assert copy == tool.port_text(original)
+    assert "sonata_tpu." not in copy.replace("sonata_tpu_torch.", "")
+
+
+def test_copy_tool_repoints_names_only():
+    tool = _copy_tool()
+    text = ("from sonata_tpu.serving import tracing\n"
+            "x = 'sonata_tpu_torch.synth'  # sonata_tpu_x stays\n")
+    assert tool.port_text(text) == (
+        "from sonata_tpu_torch.serving import tracing\n"
+        "x = 'sonata_tpu_torch.synth'  # sonata_tpu_x stays\n")

@@ -142,12 +142,12 @@ def test_stream_synthesis_matches_reference_from_same_z(
     port_voice = PiperVoice.from_config_path(cfg, device="cpu")
     assert (port_voice.fused_epilogue == "off") == (epilogue == "off")
     phonemes = port_voice.phonemize_text(STREAM_SENTENCE)[0]
-    z, total, f, sid = port_voice._stream_start(
+    z, total, f, sid = port_voice._stream_stages.start(
         port_voice._encode_phonemes(phonemes),
         port_voice.get_fallback_synthesis_config())
     assert total > 2 * 12 + 2 * 2  # several chunks at chunk_size 12
-    start = (z, total, f, sid)
-    port_voice._stream_start = lambda ids, sc: start
+    port_voice._stage_coalescer.close()
+    port_voice._stage_coalescer = _FixedStages((z, total, f, sid))
 
     jax_voice = JaxVoice.from_config_path(cfg)
     jax_voice._stage_coalescer = _FixedStages(
@@ -157,6 +157,7 @@ def test_stream_synthesis_matches_reference_from_same_z(
     finally:
         jax_voice.close()
     got = list(port_voice.stream_synthesis(phonemes, 12, 2))
+    port_voice.close()
     assert [len(c.samples) for c in got] == [len(c.samples) for c in want]
     assert len(got) > 2
     for g_, w_ in zip(got, want):
@@ -210,7 +211,37 @@ def test_random_voice_is_seeded_and_streams_on_cpu():
                                             chunk_size=8, chunk_padding=1))
     audio = np.concatenate([c.samples.data for c in chunks])
     assert audio.size % a.hp.hop_length == 0 and np.isfinite(audio).all()
-    with pytest.raises(OperationError, match="output configs"):
+    with pytest.raises(OperationError, match="output_config must be"):
         synth.synthesize_lazy("Hi.", object())
     lazy = list(synth.synthesize_lazy("One. Two."))
     assert len(lazy) == 2 and all(len(x.samples) > 0 for x in lazy)
+    synth.close()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_rows_divides_as_the_reference(seed):
+    """``_quantize_rows`` is the JAX voice's quantize expression
+    (``PiperVoice._decode_quantize`` after the decode): int16 rows identical
+    and peaks equal on the same rows and lengths.  Peaks spread over
+    [0.01, 2] (and one row below the floor), so a reciprocal-multiply scale
+    would be an ulp off for about a quarter of them."""
+    import jax.numpy as jnp
+
+    from sonata_tpu_torch.models.piper import _quantize_rows
+
+    rng = np.random.default_rng(seed)
+    b, s = 64, 4096
+    gains = np.concatenate([rng.uniform(0.01, 2.0, b - 1), [0.004]])
+    wav = (rng.uniform(-1, 1, (b, s)) * gains[:, None]).astype(np.float32)
+    lengths = rng.integers(1, s + 1, b).astype(np.int32)
+    q, peak = _quantize_rows(torch.from_numpy(wav), torch.from_numpy(lengths))
+
+    # sonata_tpu/models/piper.py, PiperVoice._decode_quantize
+    jwav, jlen = jnp.asarray(wav), jnp.asarray(lengths)
+    valid = jnp.arange(s)[None, :] < jlen[:, None]
+    jpeak = jnp.max(jnp.abs(jwav) * valid, axis=1, keepdims=True)
+    scale = 32767.0 / jnp.maximum(jpeak, 0.01)
+    jq = jnp.clip(jwav * scale, -32768.0, 32767.0).astype(jnp.int16)
+
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(peak.numpy(), np.asarray(jpeak)[:, 0])
