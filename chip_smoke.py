@@ -73,21 +73,71 @@ exits non-zero; nothing is caught):
               appended_silence_ms=200)``, once per ``stream_normalization``,
               against the CPU port (same lengths, within 1e-3 of the peak),
               and which DSP arm (C++ or numpy) ran.
-11. kernels — each kernel against its plain PyTorch version on the card, at
+11. precision — one file and one stream through each decoder arm on the
+              card (float32, ``compute_dtype=bfloat16``,
+              ``decode_quant=int8``), each voice fresh and warmed as in phase
+              2 so its noise reaches the file where phase 2's did: bf16 and
+              int8 against float32 with SNR > 25 dB (the JAX package's bf16
+              bar), int8 also with log-spectral distance < 1 dB (its int8
+              bar; bf16's is reported), the float32 WAV identical to phase
+              2's, and each arm's HiFi-GAN device time at a [4, 384]
+              decode (CUDA events around one call, the median of 10; the
+              profiler's reading of its kernels beside).
+12. warmup  — a medium voice in iteration mode with a ``BatchScheduler``
+              attached, calibrated by one utterance, then the ``full``
+              warm-up lattice (``serving.warmup.warm_model_lattice``: shape
+              count and seconds), then 8 concurrent streams and a
+              3-sentence text sentence by sentence through the scheduler,
+              on texts the lattice never saw: no first use of a (shape,
+              thread) pair the lattice warmed (``PiperVoice.first_uses``
+              against ``warmed_shapes``), first chunk p50 and max.
+13. serve   — the gRPC server (``frontends.grpc_server.create_server``)
+              on loopback with ``--continuous-batching``, a 1-replica pool
+              on the card and the ``full`` lattice: the medium voice saved
+              as ``voice.pt`` and loaded by ``LoadVoice``; the warm-up that
+              gates ``/readyz``; 8 concurrent ``SynthesizeUtteranceRealtime``
+              and 4 single-sentence ``SynthesizeUtterance`` (2 lazy, 2
+              batched) one after another; time to first message, audio
+              seconds per wall second; ``sonata_runtime_cold_compiles_total``
+              must be 0 and ``/readyz`` 200; one realtime response within
+              1e-3 of its peak against the CPU port (same chunks); a
+              sentence's first batch on 3 fresh threads against the
+              scheduler's warm worker; then the drain, whose phases must run
+              in ``DRAIN_PHASES`` order.  The warm-up's launches are
+              counted as a path of their own (``serve_warmup``).
+13b. serve_plain — the server without ``--continuous-batching`` and its
+              ``full`` lattice: single-sentence ``SynthesizeUtterance`` with
+              speech args from fresh threads run on the voice's warmed batch
+              thread; no batch shape first met after the warm-up, cold
+              compiles 0.
+14. frontends — the saved voice through the CLI (``python3 -m
+              sonata_tpu_torch.frontends.cli`` in a subprocess), the C ABI
+              (``libsonata_tpu`` built with ``g++`` and loaded with
+              ``ctypes`` into this process) and ``pysonata``: each WAV
+              identical to the library's (``synthesize_to_file``) on the
+              card, and the C ABI's realtime events identical to the
+              library's stream of 72-frame chunks.
+15. kernels — each kernel against its plain PyTorch version on the card, at
               the shapes every path above gave it and at fixed check shapes that reach
               the kernels' edges (ragged and misaligned rows, a strided
-              ``g``, slice boundaries inside fades).  Each is timed three
-              ways: ``device_ms``, the kernel's own device time per call
-              from the profiler; ``host_us``, wall time per call over 200
+              ``g``, slice boundaries inside fades).  Each is timed four
+              ways: ``device_ms``, device time per call from CUDA events
+              around 20 calls, each on inputs of its own, queued behind a
+              sleeping kernel after twice the L2 cache was written (so the
+              calls run back to back and every input comes from device
+              memory, as the bound assumes: one input set reused stays in
+              L2 and beats the bound); ``profiler_ms``, the profiler's
+              kernel events for the same calls, beside it (``PERF.md``
+              says why both); ``host_us``, wall time per call over 200
               back-to-back calls with one synchronise at the end (what the
               wrapper costs the host); ``call_ms``, host and device for one
               call (CUDA events around a single call).  ``floor_device_ms``
               is the device time of the smallest kernel (a one-element
-              ``zero_()``) in the same run, and ``bound_share`` the bound
+              ``zero_()``, timed as ``device_ms``), and ``bound_share`` the bound
               over ``device_ms``.  The ``kernels`` line times each kernel
               at the main path's most frequent shape; its ``ms`` and
               ``plain_ms`` are device times per call.
-12. the ``{"kernels": [...]}`` line, the card line, and last
+16. the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -111,6 +161,12 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
+#: calls a kernel timing spreads over, each on inputs of its own
+COLD_CALLS = 20
+#: the sleeping kernel the timed calls queue behind: about 10 ms at the
+#: H100's 1.98 GHz, longer than the host takes to enqueue them
+SLEEP_CYCLES = 20_000_000
 
 TEXT = ("The quick brown fox jumps over the lazy dog. "
         "Streaming speech synthesis turns text into audio one chunk at a "
@@ -164,6 +220,33 @@ STAGE_WAIT_MS = 5000.0
 #: GPU against CPU port, or against another batch shape: of the peak
 PARITY_TOL = 1e-3
 PROSODY = dict(rate=30, volume=80, pitch=60, appended_silence_ms=200)
+#: the JAX package's bars for a reduced-precision decoder against float32:
+#: SNR for both arms, the log-spectral distance for the int8 arm
+SNR_DB_MIN, LSD_DB_MAX = 25.0, 1.0
+#: a lone stream on the card before the port had a warm-up (NVIDIA H100
+#: 80GB HBM3, 700 W): first chunk 0.36389 s when its engine thread met a
+#: new window shape, and 0.039-0.060 s warm
+#: (``tools/torch_stream_timeline.py``)
+UNWARMED_FIRST_CHUNK_S, WARM_FIRST_CHUNK_S = 0.36389, (0.039, 0.060)
+#: texts the warm-up lattice never saw (it runs zero-valued dummies)
+WARM_TEXTS = (
+    "The lattice warmed every shape before this stream asked for one.",
+    "A listener on a slow phone line waits for the first chunk only.",
+    "Nine hundred callers may arrive at the same moment after a deploy.",
+    "Readiness turns on once every serving thread has met its shapes.",
+    "The plans are built per thread, so each worker warms its own.",
+    "A window of speech decodes while the next one is still queued.",
+    "The decoder's batch grows and shrinks as the streams come and go.",
+    "Nothing in this sentence was synthesized during the warm-up.")
+WARM_FILE_TEXT = ("The scheduler speaks this file one sentence at a time. "
+                  "Each sentence lands on a shape the lattice warmed. "
+                  "Its worker thread built the plans before readiness.")
+#: the serve phase's realtime texts and single-sentence utterances
+SERVE_TEXTS = WARM_TEXTS
+SERVE_UTTERANCES = ("The server answers this request in lazy mode.",
+                    "A second lazy request follows the first one.",
+                    "Batched mode synthesizes this sentence now.",
+                    "The last request of the serve phase is batched.")
 
 
 def require(ok: bool, what) -> None:
@@ -214,24 +297,65 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def device_ms(torch, fn, iters: int = 20, name=None):
-    """Device time per call of ``fn`` from the profiler's CUDA kernel events
-    (all kernels, or those whose name contains ``name``); None when the
-    profiler records no device activity."""
+def cold_device_ms(torch, calls, rounds: int = 3) -> float:
+    """Device time per call, each of ``calls`` on inputs of its own: after
+    a write of twice the L2 cache, the calls are enqueued behind a sleeping
+    kernel, so they run back to back on the card however slow the host is
+    to launch them, every input read from device memory and every output
+    kept (written to memory no earlier call used); CUDA events around
+    them, the median of ``rounds``.  A round in which the host was still
+    enqueuing when the sleep ended is run again with twice the sleep."""
+    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
+    kept = [fn() for fn in calls]  # the outputs' memory, allocated once
+    del kept
+    times, cycles = [], SLEEP_CYCLES
+    for _ in range(rounds + 4):
+        flush.zero_()
+        sleep_start = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sleep_start.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        kept = [fn() for fn in calls]
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        del kept
+        if enqueue_ms >= sleep_start.elapsed_time(start):
+            cycles *= 2
+            continue
+        times.append(start.elapsed_time(end) / len(calls))
+        if len(times) == rounds:
+            return statistics.median(times)
+    raise RuntimeError(f"chip_smoke: the host outran the sleep "
+                       f"({enqueue_ms} ms to enqueue)")
+
+
+def profiler_ms(torch, calls, name=None, attempts: int = 3):
+    """The same calls' device time per call from the profiler's kernel
+    events (all kernels, or those whose name contains ``name``), after the
+    same L2 flush; None when a capture records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
+    calls[0]()
+    for _ in range(attempts):
+        flush.zero_()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and (name is None or name in e.name)]
-    return sum(us) / iters / 1e3 if us else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kept = [fn() for fn in calls]
+            torch.cuda.synchronize()
+        del kept
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (name is None or name in e.name)]
+        if us:
+            return sum(us) / len(calls) / 1e3
+    return None
 
 
 def profile_run(torch, fn) -> dict:
@@ -320,13 +444,32 @@ def bound(nbytes: int, nops: int):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def timings(torch, fn, name: str, bound_ms: float, floor_ms: float) -> dict:
-    """The kernel's timing fields for a ``*_check`` line."""
-    dev = device_ms(torch, fn, name=name)
-    require(dev is not None, f"no device time recorded for {name}")
-    return {"device_ms": dev, "host_us": host_us(torch, fn),
-            "call_ms": call_ms(torch, fn), "floor_device_ms": floor_ms,
+def timings(torch, calls, name: str, bound_ms: float, floor_ms: float,
+            shape=None) -> dict:
+    """The kernel's timing fields for a ``*_check`` line: ``device_ms``
+    over ``calls`` (:func:`cold_device_ms`) and the profiler's reading of
+    them, the host's over the first."""
+    dev = cold_device_ms(torch, calls)
+    return {"device_ms": dev,
+            "profiler_ms": profiler_ms(torch, calls, name=name),
+            "host_us": host_us(torch, calls[0]),
+            "call_ms": call_ms(torch, calls[0]), "floor_device_ms": floor_ms,
             "bound_ms": bound_ms, "bound_share": bound_ms / dev}
+
+
+def gate_calls(torch, fn, shape, g_mode, seed: int, offset: int = 0):
+    """``fn(x, g)`` on :data:`COLD_CALLS` copies of the gate's inputs."""
+    return [lambda x=x, g=g: fn(x, g) for x, g in (
+        gate_inputs(torch, shape, g_mode, seed + k, offset)
+        for k in range(COLD_CALLS))]
+
+
+def epilogue_calls(torch, fn, b, s, bounds, seed: int, offset: int = 0):
+    """``fn(wav, lo, hi)`` on :data:`COLD_CALLS` copies of the epilogue's
+    inputs."""
+    return [lambda w=w, lo=lo, hi=hi: fn(w, lo, hi) for w, lo, hi in (
+        epilogue_inputs(torch, b, s, bounds, seed + k, offset)
+        for k in range(COLD_CALLS))]
 
 
 def check_gate(torch, gate, shape, g_mode, seed, offset=0):
@@ -584,6 +727,623 @@ def check_diacritizer(torch, gpu, cpu, texts, strip) -> dict:
             "device_ms": prof["device_busy_s"] * 1e3,
             "device_events": prof["device_events"],
             "profiled_wall_ms": prof["wall_s"] * 1e3, "top": prof["top"][:4]}
+
+
+def snr_db(ref, x) -> float:
+    """Waveform SNR (dB) of ``x`` against ``ref`` (the JAX test's)."""
+    import numpy as np
+
+    ref = np.asarray(ref, np.float64)
+    err = np.asarray(x, np.float64) - ref
+    return float(10 * np.log10(max(float((ref ** 2).mean()), 1e-12)
+                               / max(float((err ** 2).mean()), 1e-30)))
+
+
+def lsd_db(ref, x, nfft: int = 512) -> float:
+    """Mean log-magnitude spectral distance (dB), the JAX test's."""
+    import numpy as np
+
+    ref = np.asarray(ref, np.float64).ravel()
+    x = np.asarray(x, np.float64).ravel()
+    n = (min(len(ref), len(x)) // nfft) * nfft
+    r = np.fft.rfft(ref[:n].reshape(-1, nfft) * np.hanning(nfft), axis=1)
+    y = np.fft.rfft(x[:n].reshape(-1, nfft) * np.hanning(nfft), axis=1)
+    lr = 20 * np.log10(np.maximum(np.abs(r), 1e-8))
+    ly = 20 * np.log10(np.maximum(np.abs(y), 1e-8))
+    return float(np.sqrt(((lr - ly) ** 2).mean()))
+
+
+class Ctx:
+    """What the serving phases share with ``main``: torch, the card's line,
+    the kernels' launch counting, each path's counts, the WN layers per
+    acoustics call, and phase 2's file."""
+
+    def __init__(self, torch, gpu, counting, paths, n_wn, main_wav):
+        self.torch, self.gpu, self.counting = torch, gpu, counting
+        self.paths, self.n_wn, self.main_wav = paths, n_wn, main_wav
+
+
+def medium_voice(torch, **kwargs):
+    """Phase 2's voice: medium width, seed 0, its zero-init layers filled."""
+    from sonata_tpu_torch.models import PiperVoice
+
+    voice = PiperVoice.random(seed=0, **kwargs)
+    fill_zero_init(torch, voice.model, seed=1)
+    return voice
+
+
+class env_set:
+    """Set environment variables for a block, and restore them."""
+
+    def __init__(self, **values):
+        self._values = values
+
+    def __enter__(self):
+        self._saved = {k: os.environ.get(k) for k in self._values}
+        os.environ.update(self._values)
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def phase_precision(ctx) -> None:
+    """Phase 11: the file and a stream through each decoder arm."""
+    import numpy as np
+
+    from sonata_tpu_torch.audio import read_wave_file
+    from sonata_tpu_torch.synth import SpeechSynthesizer
+
+    torch = ctx.torch
+    arms = {"float32": {}, "bfloat16": {"compute_dtype": "bfloat16"},
+            "int8": {"decode_quant": "int8"}}
+    out = {}
+    with ctx.counting() as pc, tempfile.TemporaryDirectory() as tmp:
+        for name, kw in arms.items():
+            voice = medium_voice(torch, **kw)
+            synth = SpeechSynthesizer(voice)
+            # phase 2's warm-ups: the noise counter reaches the file where
+            # phase 2's did
+            list(synth.synthesize_parallel("Warm up."))
+            list(synth.synthesize_streamed("Warm up the stream too.",
+                                           chunk_size=45, chunk_padding=3))
+            path = Path(tmp) / f"{name}.wav"
+            t0 = time.perf_counter()
+            synth.synthesize_to_file(path, TEXT)
+            torch.cuda.synchronize()
+            file_s = time.perf_counter() - t0
+            chunks = [c.samples.data for c in synth.synthesize_streamed(
+                STREAM_TEXT, chunk_size=45, chunk_padding=3)]
+            # the HiFi-GAN at the main path's file shape, [4, 384] frames
+            z = torch.randn((4, 384, voice.hp.inter_channels),
+                            generator=torch.Generator().manual_seed(7)
+                            ).to(voice.device)
+            with torch.inference_mode():
+                dec = call_ms(torch, lambda: voice._decode(z), iters=10)
+                dec_prof = profiler_ms(torch, [lambda: voice._decode(z)] * 3)
+                wav = voice._decode(z)
+            require(wav.dtype == torch.float32, ("decode", name))
+            out[name] = {"wav": read_wave_file(path)[0], "file_s": file_s,
+                         "stream": np.concatenate(chunks),
+                         "decode_device_ms": dec,
+                         "decode_profiler_ms": dec_prof,
+                         "dec_dtype": str(getattr(
+                             voice.model.dec.conv_pre, "w_q",
+                             voice.model.dec.conv_pre.weight).dtype),
+                         "compute_dtype": str(voice.compute_dtype
+                                              or torch.float32)}
+            voice.close()
+    ctx.paths["precision"] = pc
+    pc.check(ctx.n_wn, "precision")
+    ref = out["float32"]
+    rows = {}
+    for name, r in out.items():
+        same = r["wav"].shape == ref["wav"].shape
+        rows[name] = {"file_s": r["file_s"],
+                      "decode_device_ms": r["decode_device_ms"],
+                      "decode_profiler_ms": r["decode_profiler_ms"],
+                      "decoder_weights": r["dec_dtype"],
+                      "compute_dtype": r["compute_dtype"],
+                      "samples": int(r["wav"].size)}
+        if name != "float32":
+            require(same and r["stream"].shape == ref["stream"].shape,
+                    ("arm lengths", name))
+            rows[name].update(
+                file_snr_db=snr_db(ref["wav"], r["wav"]),
+                file_lsd_db=lsd_db(ref["wav"], r["wav"]),
+                stream_snr_db=snr_db(ref["stream"], r["stream"]),
+                stream_lsd_db=lsd_db(ref["stream"], r["stream"]))
+    f32_same = (ref["wav"].shape == ctx.main_wav.shape
+                and bool(np.array_equal(ref["wav"], ctx.main_wav)))
+    emit({"phase": "precision", "card": ctx.gpu, "arms": rows,
+          "float32_identical_to_main": f32_same,
+          "snr_db_min": SNR_DB_MIN, "lsd_db_max": LSD_DB_MAX,
+          **pc.summary()})
+    require(f32_same, "the float32 arm's WAV differs from phase 2's")
+    for name in ("bfloat16", "int8"):
+        r = rows[name]
+        require(min(r["file_snr_db"], r["stream_snr_db"]) > SNR_DB_MIN,
+                (name, r))
+    # the spectral bar is the int8 arm's: a bfloat16 conv stack lifts the
+    # quiet bins' noise floor past it in the reference too (PERF.md)
+    r = rows["int8"]
+    require(max(r["file_lsd_db"], r["stream_lsd_db"]) < LSD_DB_MAX,
+            ("int8", r))
+
+
+def phase_warmup(ctx) -> None:
+    """Phase 12: the full lattice, then traffic it never saw."""
+    from sonata_tpu_torch.serving import warmup
+    from sonata_tpu_torch.synth import BatchScheduler, SpeechSynthesizer
+
+    torch = ctx.torch
+    with env_set(SONATA_BATCH_MODE="iteration"):
+        voice = medium_voice(torch)
+        sched = BatchScheduler(voice)
+        voice.attach_batch_worker(lambda: sched)
+        synth = SpeechSynthesizer(voice)
+        try:
+            list(synth.synthesize_parallel("Ready."))  # the calibration
+            shapes = voice.lattice_shapes("full")
+            progress = warmup.WarmupProgress()
+            progress.reset()
+            with ctx.counting() as lc:
+                t0 = time.perf_counter()
+                warmed = warmup.warm_model_lattice(
+                    voice, mode="full", deadline=time.monotonic() + 900,
+                    progress=progress, label="warmup")
+                lattice_s = time.perf_counter() - t0
+            ctx.paths["warmup_lattice"] = lc
+            mark = len(voice.first_uses)
+            sentences = list(voice.phonemize_text(WARM_FILE_TEXT))
+            with ctx.counting() as wc:
+                run = run_streams(synth, list(WARM_TEXTS))
+                t0 = time.perf_counter()
+                audio = [sched.speak(p, timeout=300) for p in sentences]
+                file_s = time.perf_counter() - t0
+            ctx.paths["warmup"] = wc
+        finally:
+            sched.shutdown()
+            voice.close()
+    lc.check(ctx.n_wn, "warmup lattice")
+    wc.check(ctx.n_wn, "warmup traffic")
+    new = voice.first_uses[mark:]
+    inside = [u for u in new if (u[0], u[1]) in voice.warmed_shapes]
+    outside = [u for u in new if (u[0], u[1]) not in voice.warmed_shapes]
+    first = run["first_chunk_s"]
+    kinds = Counter(s[0] if isinstance(s[0], str) else "full"
+                    for s in shapes)
+    emit({"phase": "warmup", "card": ctx.gpu, "mode": "full",
+          "batch_mode": "iteration",
+          "calibrated_frames_per_id": voice._frames_per_id,
+          "lattice_shapes": len(shapes), "by_kind": dict(kinds),
+          "warmed": warmed, "progress": progress.fraction(),
+          "engine_shapes_warmed": len(voice.warmed_shapes),
+          "lattice_s": lattice_s,
+          "first_chunk_s": {"p50": statistics.median(first),
+                            "max": max(first), "each": first},
+          "unwarmed_lone_stream_first_chunk_s": {
+              "cold": UNWARMED_FIRST_CHUNK_S, "warm": WARM_FIRST_CHUNK_S},
+          "streams_wall_s": run["wall_s"],
+          "file_sentences": len(audio), "file_wall_s": file_s,
+          "cold_inside_lattice": [list(map(str, u)) for u in inside],
+          "cold_outside_lattice": [list(map(str, u)) for u in outside],
+          **wc.summary()})
+    require(warmed == len(shapes) and progress.fraction() == 1.0,
+            ("lattice incomplete", warmed, len(shapes)))
+    require(not inside, ("cold dispatch on a warmed shape", inside))
+    require(all(len(a.samples) > 0 for a in audio)
+            and all(run["chunks"]), "warm-up traffic made no audio")
+
+
+def save_voice(torch, directory: Path) -> Path:
+    """Phase 2's voice as ``voice.pt`` beside ``voice.onnx.json`` with zero
+    noise scales; returns the config path."""
+    import numpy as np
+
+    from sonata_tpu_torch.models.import_torch import params_to_state_dict
+    from sonata_tpu_torch.models.weights import params_to_numpy
+
+    voice = medium_voice(torch)
+    state = params_to_state_dict(params_to_numpy(voice.model), voice.hp)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in state.items()}, directory / "voice.pt")
+    config = {"audio": {"sample_rate": 22050, "quality": "medium"},
+              "num_speakers": 1, "espeak": {"voice": "en-us"},
+              "num_symbols": voice.config.num_symbols,
+              "phoneme_id_map": voice.config.phoneme_id_map,
+              "model": dataclasses.asdict(voice.hp),
+              "inference": {"noise_scale": 0.0, "length_scale": 1.0,
+                            "noise_w": 0.0}}
+    path = directory / "voice.onnx.json"
+    path.write_text(json.dumps(config), encoding="utf-8")
+    voice.close()
+    return path
+
+
+def http_get(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.getcode(), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase_serve(ctx, cfg: Path) -> None:
+    """Phase 13: the gRPC server on the card, over loopback."""
+    import grpc
+    import numpy as np
+
+    from sonata_tpu_torch.frontends import grpc_messages as pb
+    from sonata_tpu_torch.frontends.grpc_server import create_server
+    from sonata_tpu_torch.models import PiperVoice
+    from sonata_tpu_torch.serving import parse_prometheus_text
+    from sonata_tpu_torch.serving.drain import DRAIN_PHASES
+    from sonata_tpu_torch.synth import SpeechSynthesizer
+
+    torch = ctx.torch
+    with env_set(SONATA_WARMUP_LATTICE="full",
+                 SONATA_BATCH_MODE="iteration"):
+        server, port = create_server(0, continuous_batching=True,
+                                     replicas=1, metrics_port=0)
+        service, rt = server.sonata_service, server.sonata_runtime
+        server.start()
+        try:
+            channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+
+            def unary(name, req, resp):
+                return channel.unary_unary(
+                    f"/sonata_grpc.sonata_grpc/{name}",
+                    request_serializer=lambda m: m.encode(),
+                    response_deserializer=resp.decode)(req)
+
+            def stream(name, req, resp):
+                return channel.unary_stream(
+                    f"/sonata_grpc.sonata_grpc/{name}",
+                    request_serializer=lambda m: m.encode(),
+                    response_deserializer=resp.decode)(req)
+
+            base = f"http://127.0.0.1:{rt.http_port}"
+            t0 = time.perf_counter()
+            vid = unary("LoadVoice", pb.VoicePath(config_path=str(cfg)),
+                        pb.VoiceInfo).voice_id
+            load_s = time.perf_counter() - t0
+            ready_before = http_get(base + "/readyz")[0]
+            with ctx.counting() as swc:
+                t0 = time.perf_counter()
+                service.warmup_and_mark_ready()
+                warm_s = time.perf_counter() - t0
+            ctx.paths["serve_warmup"] = swc
+            ready_after = http_get(base + "/readyz")[0]
+            v = service._voices[vid]
+            texts = list(SERVE_TEXTS)
+            responses, ttfb = [None] * len(texts), [None] * len(texts)
+
+            def realtime(i):
+                t0 = time.perf_counter()
+                out = []
+                for msg in stream("SynthesizeUtteranceRealtime",
+                                  pb.Utterance(voice_id=vid,
+                                               text=texts[i]),
+                                  pb.WaveSamples):
+                    if not out:
+                        ttfb[i] = time.perf_counter() - t0
+                    out.append(np.frombuffer(msg.wav_samples, "<i2"))
+                responses[i] = out
+
+            with ctx.counting() as sc:
+                wall = run_together(realtime, len(texts))
+                utter = []
+                for i, text in enumerate(SERVE_UTTERANCES):
+                    mode = (pb.SynthesisMode.LAZY if i < 2
+                            else pb.SynthesisMode.BATCHED)
+                    t0 = time.perf_counter()
+                    items = list(stream("SynthesizeUtterance", pb.Utterance(
+                        voice_id=vid, text=text, synthesis_mode=mode),
+                        pb.SynthesisResult))
+                    utter.append({"mode": "lazy" if i < 2 else "batched",
+                                  "wall_s": time.perf_counter() - t0,
+                                  "items": len(items),
+                                  "samples": sum(len(m.wav_samples) // 2
+                                                 for m in items)})
+            ctx.paths["serve"] = sc
+            code, body = http_get(base + "/metrics")
+            require(code == 200, ("metrics scrape", code))
+            parsed = parse_prometheus_text(body)
+            cold = sum(val for _l, val in parsed.get(
+                "sonata_runtime_cold_compiles_total", []))
+            ready_code = http_get(base + "/readyz")[0]
+            # a sentence's first batch on fresh threads (a handler pool's)
+            # against the same sentence on the scheduler's warm worker
+            replica = v.pool.replicas[0].model
+            sentence = list(replica.phonemize_text(SERVE_UTTERANCES[0]))[0]
+            fresh_ms = []
+            for _ in range(3):
+                box = {}
+
+                def one():
+                    t0 = time.perf_counter()
+                    replica.speak_batch([sentence])
+                    box["ms"] = (time.perf_counter() - t0) * 1e3
+
+                t = threading.Thread(target=one)
+                t.start()
+                t.join(120)
+                fresh_ms.append(box["ms"])
+            worker_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                v.pool.speak(sentence, timeout=120)
+                worker_ms.append((time.perf_counter() - t0) * 1e3)
+            drained = service.drain(reason="chip_smoke")
+            phases = [p for p, _ms in rt.drain.phases]
+            stragglers = rt.admission.in_flight
+        finally:
+            server.stop(grace=None)
+            service.shutdown()
+    swc.check(ctx.n_wn, "serve warm-up")
+    sc.check(ctx.n_wn, "serve")
+    # one realtime response against the CPU port's stream of its text
+    cpu = PiperVoice.from_config_path(cfg, device="cpu")
+    want = [np.frombuffer(c.as_wave_bytes(), "<i2") for c in
+            SpeechSynthesizer(cpu).synthesize_streamed(
+                texts[0], chunk_size=55, chunk_padding=3)]
+    cpu.close()
+    got = responses[0]
+    same = [len(c) for c in got] == [len(c) for c in want]
+    par = audio_parity(np.concatenate(got).astype(np.float32),
+                       np.concatenate(want).astype(np.float32))
+    audio_s = sum(sum(len(c) for c in r) for r in responses) / 22050
+    emit({"phase": "serve", "card": ctx.gpu, "transport": "grpc loopback",
+          "replicas": len(v.pool.replicas),
+          "devices": [str(r.device) for r in v.pool.replicas],
+          "lattice": "full", "batch_mode": "iteration",
+          "load_voice_s": load_s, "warmup_s": warm_s,
+          "warmup_progress": rt.warmup_progress.snapshot(),
+          "readyz_before_warmup": ready_before,
+          "readyz_after_warmup": ready_after,
+          "realtime": {"streams": len(texts),
+                       "ttfb_s": {"p50": statistics.median(ttfb),
+                                  "max": max(ttfb), "each": ttfb},
+                       "wall_s": wall, "audio_s": audio_s,
+                       "audio_s_per_wall_s": audio_s / wall},
+          "utterances": utter, "runtime_cold_compiles_total": cold,
+          "readyz": ready_code,
+          "first_batch_fresh_thread_ms": fresh_ms,
+          "scheduler_worker_ms": worker_ms,
+          "parity": {**par, "boundaries_identical": same,
+                     "tolerance_rel": PARITY_TOL},
+          "drained": drained, "drain_phases": phases,
+          "stragglers": stragglers,
+          "warmup_counts": {k: v for k, v in swc.summary().items()
+                            if k in ("acoustics_calls", "window_decodes",
+                                     "launches")},
+          **sc.summary()})
+    require(ready_before == 503 and ready_after == 200 and ready_code == 200,
+            ("readyz", ready_before, ready_after, ready_code))
+    require(cold == 0, ("runtime cold compiles after the warm-up", cold))
+    require(all(responses) and all(u["samples"] > 0 for u in utter),
+            "serve made no audio")
+    require(same and par["max_rel_diff"] <= PARITY_TOL,
+            ("serve vs CPU port", par, same))
+    require(drained and phases == list(DRAIN_PHASES) and stragglers == 0,
+            ("drain", drained, phases, stragglers))
+
+
+def phase_serve_plain(ctx, cfg: Path) -> None:
+    """Phase 13b: the gRPC server as ``create_server`` builds it by default
+    (no ``--continuous-batching``, no pool), the ``full`` lattice.  Batch
+    synthesis from its handler threads runs on the voice's batch thread,
+    which the lattice warms: 8 single-sentence ``SynthesizeUtterance``
+    calls with speech args, lazy and batched in turn, each from a fresh
+    client thread; the wall time of each, no batch shape met for the first
+    time after the warm-up, and ``sonata_runtime_cold_compiles_total`` 0."""
+    import grpc
+
+    from sonata_tpu_torch.frontends import grpc_messages as pb
+    from sonata_tpu_torch.frontends.grpc_server import create_server
+    from sonata_tpu_torch.serving import parse_prometheus_text
+
+    with env_set(SONATA_WARMUP_LATTICE="full"):
+        server, port = create_server(0, metrics_port=0)
+        service, rt = server.sonata_service, server.sonata_runtime
+        server.start()
+        try:
+            channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+            vid = channel.unary_unary(
+                "/sonata_grpc.sonata_grpc/LoadVoice",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=pb.VoiceInfo.decode)(
+                pb.VoicePath(config_path=str(cfg))).voice_id
+            synth = channel.unary_stream(
+                "/sonata_grpc.sonata_grpc/SynthesizeUtterance",
+                request_serializer=lambda m: m.encode(),
+                response_deserializer=pb.SynthesisResult.decode)
+            with ctx.counting() as wc:
+                t0 = time.perf_counter()
+                service.warmup_and_mark_ready()
+                warm_s = time.perf_counter() - t0
+            ctx.paths["serve_plain_warmup"] = wc
+            voice = service._voices[vid].voice
+            mark = len(voice.first_uses)
+            args = pb.SpeechArgs(**PROSODY)
+            calls = []
+            with ctx.counting() as pc:
+                for i in range(8):
+                    mode = ("lazy", "batched")[i % 2]
+                    req = pb.Utterance(
+                        voice_id=vid, text=SERVE_UTTERANCES[i // 2],
+                        synthesis_mode=getattr(pb.SynthesisMode,
+                                               mode.upper()),
+                        speech_args=args)
+                    box = {}
+
+                    def one():
+                        t0 = time.perf_counter()
+                        box["items"] = list(synth(req))
+                        box["ms"] = (time.perf_counter() - t0) * 1e3
+
+                    t = threading.Thread(target=one)
+                    t.start()
+                    t.join(120)
+                    calls.append({"mode": mode, "ms": box["ms"],
+                                  "items": len(box["items"]),
+                                  "samples": sum(len(m.wav_samples) // 2
+                                                 for m in box["items"])})
+            ctx.paths["serve_plain"] = pc
+            code, body = http_get(
+                f"http://127.0.0.1:{rt.http_port}/metrics")
+            require(code == 200, ("metrics scrape", code))
+            cold = sum(val for _l, val in parse_prometheus_text(body).get(
+                "sonata_runtime_cold_compiles_total", []))
+            new = [u for u in voice.first_uses[mark:] if u[0] == "batch"]
+            batch_threads = sorted({u[2] for u in voice.first_uses
+                                    if u[0] == "batch"})
+        finally:
+            server.stop(grace=None)
+            service.shutdown()
+    wc.check(ctx.n_wn, "serve_plain warm-up")
+    pc.check(ctx.n_wn, "serve_plain")
+    emit({"phase": "serve_plain", "card": ctx.gpu, "lattice": "full",
+          "continuous_batching": False, "warmup_s": warm_s,
+          "speech_args": PROSODY, "calls": calls,
+          "batch_first_uses_after_warmup": [list(map(str, u)) for u in new],
+          "batch_threads": batch_threads,
+          "runtime_cold_compiles_total": cold,
+          "warmup_counts": {k: v for k, v in wc.summary().items()
+                            if k in ("acoustics_calls", "window_decodes",
+                                     "launches")},
+          **pc.summary()})
+    require(all(c["items"] == 1 and c["samples"] > 0 for c in calls),
+            ("serve_plain made no audio", calls))
+    require(batch_threads == ["sonata_batch_thread"],
+            ("a batch ran off the voice's batch thread", batch_threads))
+    require(not new and cold == 0,
+            ("serve_plain met a batch shape cold", new, cold))
+
+
+def _capi_types():
+    """``SonataSynthesisEvent``, the callback type and
+    ``SonataSynthesisParams`` of ``libsonata_tpu.h``, for ctypes."""
+    import ctypes
+
+    class Event(ctypes.Structure):
+        _fields_ = [("event_type", ctypes.c_int32),
+                    ("error", ctypes.c_char_p), ("len", ctypes.c_uint64),
+                    ("data", ctypes.POINTER(ctypes.c_int16))]
+
+    callback = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.POINTER(Event),
+                                ctypes.c_void_p)
+
+    class Params(ctypes.Structure):
+        _fields_ = [("mode", ctypes.c_int32), ("rate", ctypes.c_uint8),
+                    ("volume", ctypes.c_uint8), ("pitch", ctypes.c_uint8),
+                    ("appended_silence_ms", ctypes.c_uint32),
+                    ("callback", callback), ("user_data", ctypes.c_void_p),
+                    ("nonblocking", ctypes.c_int32)]
+
+    return callback, Params
+
+
+def phase_frontends(ctx, cfg: Path) -> None:
+    """Phase 14: the CLI, the C ABI and pysonata against the library."""
+    import ctypes
+
+    from sonata_tpu_torch import pysonata
+    from sonata_tpu_torch.audio import read_wave_file
+    from sonata_tpu_torch.native import load_capi_library
+    from sonata_tpu_torch.synth import SpeechSynthesizer
+
+    callback, CapiParams = _capi_types()
+    times, wavs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with ctx.counting() as fc:
+            t0 = time.perf_counter()
+            synth = SpeechSynthesizer.from_config_path(cfg)
+            synth.synthesize_to_file(tmp / "library.wav", TEXT)
+            times["library"] = time.perf_counter() - t0
+            # the C ABI's realtime mode (2) streams 72-frame chunks
+            lib_chunks = [c.as_wave_bytes() for c in synth.synthesize_streamed(
+                STREAM_TEXT, chunk_size=72, chunk_padding=3)]
+            synth.close()
+            t0 = time.perf_counter()
+            lib = load_capi_library()
+            require(lib is not None, "the C ABI library did not build")
+            lib.libsonataLoadVoiceFromConfigPath.restype = ctypes.c_int64
+            lib.libsonataLoadVoiceFromConfigPath.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p)]
+            lib.libsonataSpeakToFile.argtypes = [
+                ctypes.c_int64, ctypes.c_char_p, ctypes.c_char_p,
+                ctypes.POINTER(CapiParams)]
+            lib.libsonataUnloadSonataVoice.argtypes = [ctypes.c_int64]
+            err = ctypes.c_char_p()
+            handle = lib.libsonataLoadVoiceFromConfigPath(
+                str(cfg).encode(), ctypes.byref(err))
+            require(handle > 0, ("C ABI load", err.value))
+            # libsonata_tpu.h's SonataSynthesisParams, in the batched mode
+            # (1): the library's synthesize_to_file batches the same way
+            params = CapiParams(mode=1, rate=255, volume=255, pitch=255)
+            rc = lib.libsonataSpeakToFile(handle, TEXT.encode(),
+                                          str(tmp / "capi.wav").encode(),
+                                          ctypes.byref(params))
+            require(rc == 0, ("C ABI speak", rc))
+            events = []
+
+            def on_event(ev_ptr, user):
+                ev = ev_ptr.contents
+                events.append(ctypes.string_at(ev.data, 2 * ev.len)
+                              if ev.event_type == 0 else ev.event_type)
+                return 0
+
+            lib.libsonataSpeak.argtypes = [ctypes.c_int64, ctypes.c_char_p,
+                                           ctypes.POINTER(CapiParams)]
+            stream_params = CapiParams(mode=2, rate=255, volume=255,
+                                       pitch=255,
+                                       callback=callback(on_event))
+            rc = lib.libsonataSpeak(handle, STREAM_TEXT.encode(),
+                                    ctypes.byref(stream_params))
+            require(rc == 0 and events and events[-1] == 1,
+                    ("C ABI realtime", rc, events[-1:]))
+            require(lib.libsonataUnloadSonataVoice(handle) == 0,
+                    "C ABI unload")
+            times["capi"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            model = pysonata.PiperModel(cfg)
+            pysonata.Sonata.with_piper(model).synthesize_to_file(
+                tmp / "pysonata.wav", TEXT)
+            times["pysonata"] = time.perf_counter() - t0
+            model._voice.close()
+        ctx.paths["frontends"] = fc
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sonata_tpu_torch.frontends.cli",
+             str(cfg), TEXT, "-o", str(tmp / "cli.wav")],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        times["cli_subprocess"] = time.perf_counter() - t0
+        require(proc.returncode == 0, ("CLI", proc.returncode,
+                                       proc.stderr[-2000:]))
+        for name in ("library", "cli", "capi", "pysonata"):
+            wavs[name] = read_wave_file(tmp / f"{name}.wav")
+    fc.check(ctx.n_wn, "frontends")
+    ref, rate, _ = wavs["library"]
+    same = {name: bool(w[0].shape == ref.shape and (w[0] == ref).all()
+                       and w[1] == rate)
+            for name, w in wavs.items() if name != "library"}
+    same["capi_realtime"] = events[:-1] == lib_chunks
+    emit({"phase": "frontends", "card": ctx.gpu, "samples": int(ref.size),
+          "capi_realtime_chunks": len(events) - 1,
+          "identical_to_library": same, "wall_s": times, **fc.summary()})
+    require(ref.size > 0 and all(same.values()),
+            ("a frontend's WAV differs from the library's", same))
 
 
 def main() -> int:
@@ -1011,11 +1771,21 @@ def main() -> int:
           "tolerance_rel": PARITY_TOL, "runs": prosody})
     require(sum(arms.values()) > 0, "no prosody processing ran")
 
-    # -- 11. kernels against their plain versions --------------------------------
+    # -- 11-14. precision arms, warm-up, the server and the frontends -----------
+    ctx = Ctx(torch, gpu, counting, paths, n_wn, samples)
+    phase_precision(ctx)
+    phase_warmup(ctx)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = save_voice(torch, Path(tmp))
+        phase_serve(ctx, cfg)
+        phase_serve_plain(ctx, cfg)
+        phase_frontends(ctx, cfg)
+
+    # -- 15. kernels against their plain versions --------------------------------
     tiny = torch.empty(1, device="cuda")
-    floor_ms = device_ms(torch, tiny.zero_)
-    require(floor_ms is not None, "no device time recorded for zero_()")
-    emit({"phase": "floor", "card": gpu, "floor_device_ms": floor_ms})
+    floor_ms = cold_device_ms(torch, [tiny.zero_] * COLD_CALLS)
+    emit({"phase": "floor", "card": gpu, "floor_device_ms": floor_ms,
+          "profiler_ms": profiler_ms(torch, [tiny.zero_] * COLD_CALLS)})
     rows = []
     # gate: the main path's shapes (a conditioned one takes g as wn passes
     # it) and fixed check shapes: T % 4 == 1 and 2, x at a storage offset,
@@ -1027,24 +1797,28 @@ def main() -> int:
                    ((2, 38, 48), "strided", 0), ((2, 38, 48), None, 0),
                    ((2, 64, 48), None, 1), ((2, 38, 48), "dense", 3)]
     gate_err = 0.0
+
+    def gate_plain(x, g):
+        return gate.fused_gate_reference(x if g is None else x + g)
+
     for i, (shape, g_mode, offset) in enumerate(gate_cases):
         x, g, err = check_gate(torch, gate, shape, g_mode, seed=i,
                                offset=offset)
         gate_err = max(gate_err, err)
         emit({"phase": "gate_check", "shape": list(shape), "g": g_mode,
               "offset": offset, "max_abs_err": err,
-              **timings(torch, lambda: gate.fused_gate(x, g), "gate_kernel",
-                        gate_bound(shape, g is not None)[0], floor_ms)})
+              **timings(torch, gate_calls(torch, gate.fused_gate, shape,
+                                          g_mode, 1000 * i, offset),
+                        "gate_kernel", gate_bound(shape, g is not None)[0],
+                        floor_ms, shape)})
     # time at the main path's most frequent shape
     shape, with_g = Counter(main_gate_shapes).most_common(1)[0][0]
-    x, g = gate_inputs(torch, shape, "strided" if with_g else None, seed=99)
-    kernel = lambda: gate.fused_gate(x, g)  # noqa: E731
-    plain = lambda: gate.fused_gate_reference(  # noqa: E731
-        x if g is None else x + g)
+    g_mode = "strided" if with_g else None
+    kernels = gate_calls(torch, gate.fused_gate, shape, g_mode, seed=99)
+    plains = gate_calls(torch, gate_plain, shape, g_mode, seed=99)
     bound_ms, bound_by = gate_bound(shape, with_g)
-    kt = timings(torch, kernel, "gate_kernel", bound_ms, floor_ms)
-    plain_dev = device_ms(torch, plain)
-    require(plain_dev is not None, "no device time recorded for the plain")
+    kt = timings(torch, kernels, "gate_kernel", bound_ms, floor_ms)
+    plain_dev = cold_device_ms(torch, plains)
     rows.append({"name": "fused_gate", "route": "cuda",
                  "source": "sonata_tpu_torch/csrc/gate.cu",
                  "replaces": "sonata_tpu/ops/gate.py:58",
@@ -1054,7 +1828,8 @@ def main() -> int:
                  "max_abs_err": gate_err, "ms": kt["device_ms"],
                  "plain_ms": plain_dev, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None, **kt,
-                 "plain_call_ms": call_ms(torch, plain),
+                 "plain_call_ms": call_ms(torch, plains[0]),
+                 "plain_profiler_ms": profiler_ms(torch, plains),
                  "timed_shape": list(shape),
                  "checked_shapes": len(gate_cases)})
 
@@ -1073,6 +1848,13 @@ def main() -> int:
     for b, s in sorted(set(shapes["epilogue"])):
         epi_cases.append((b, s, [(3 * 256, s - 3 * 256)] * b, 0))
     epi_lsb, epi_diff, epi_peak = 0, 0, 0.0
+
+    def epi_kernel(wav, lo, hi):
+        return dop.fused_epilogue(wav, lo, hi, 42)
+
+    def epi_plain(wav, lo, hi):
+        return dop.fused_epilogue_reference(wav, lo, hi, 42)
+
     for i, (b, s, bounds, offset) in enumerate(epi_cases):
         wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=i,
                                       offset=offset)
@@ -1083,19 +1865,17 @@ def main() -> int:
               "cluster": dop.epilogue_plan(b, s)[0],
               "max_lsb": lsb, "samples_differing": n_diff,
               "peak_rel_err": peak_err,
-              **timings(torch, lambda: dop.fused_epilogue(wav, lo, hi, 42),
+              **timings(torch, epilogue_calls(torch, epi_kernel, b, s,
+                                              bounds, 1000 * i, offset),
                         "epilogue_kernel", epilogue_bound(b, s)[0],
-                        floor_ms)})
+                        floor_ms, (b, s))})
     b, s = Counter(main_epi_shapes).most_common(1)[0][0]
     bounds = [(3 * 256, s - 3 * 256)] * b
-    wav, lo, hi = epilogue_inputs(torch, b, s, bounds, seed=98)
-    kernel = lambda: dop.fused_epilogue(wav, lo, hi, 42)  # noqa: E731
-    plain = lambda: dop.fused_epilogue_reference(  # noqa: E731
-        wav, lo, hi, 42)
+    kernels = epilogue_calls(torch, epi_kernel, b, s, bounds, seed=98)
+    plains = epilogue_calls(torch, epi_plain, b, s, bounds, seed=98)
     bound_ms, bound_by = epilogue_bound(b, s)
-    kt = timings(torch, kernel, "epilogue_kernel", bound_ms, floor_ms)
-    plain_dev = device_ms(torch, plain)
-    require(plain_dev is not None, "no device time recorded for the plain")
+    kt = timings(torch, kernels, "epilogue_kernel", bound_ms, floor_ms)
+    plain_dev = cold_device_ms(torch, plains)
     rows.append({"name": "fused_epilogue", "route": "cuda",
                  "source": "sonata_tpu_torch/csrc/epilogue.cu",
                  "replaces": "sonata_tpu/models/decode_opts.py:158",
@@ -1105,12 +1885,13 @@ def main() -> int:
                  "max_abs_err": epi_lsb, "ms": kt["device_ms"],
                  "plain_ms": plain_dev, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None, **kt,
-                 "plain_call_ms": call_ms(torch, plain),
+                 "plain_call_ms": call_ms(torch, plains[0]),
+                 "plain_profiler_ms": profiler_ms(torch, plains),
                  "timed_shape": [b, s],
                  "samples_differing": epi_diff,
                  "peak_rel_err": epi_peak})
 
-    # -- 12. summary --------------------------------------------------------------
+    # -- 16. summary --------------------------------------------------------------
     emit({"kernels": rows})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

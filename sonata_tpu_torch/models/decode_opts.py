@@ -1,6 +1,7 @@
-"""Streaming decode epilogue: crossfade taper + peak-scaled int16 quantize.
+"""Decoder-arm options: the streaming decode epilogue (crossfade taper +
+peak-scaled int16 quantize) and the int8 weight-only decoder.
 
-Port of the epilogue half of ``sonata_tpu/models/decode_opts.py``.  Each
+Port of ``sonata_tpu/models/decode_opts.py``.  Each
 decoded streaming window ends here: the samples outside the row's emitted
 range ``[lo, hi)`` are zeroed, the range's edges get the reference's
 per-chunk crossfade taper, and the row is quantized to int16 against its
@@ -20,8 +21,15 @@ described in the source.
 or ``off`` (the host-side slice + :meth:`AudioSamples.crossfade`, which only
 a voice on the CPU takes).  ``lax`` and ``pallas``, the JAX package's names
 for its two fused arms, are accepted as aliases of ``fused`` so that one
-environment serves both packages.  The int8 weight-only decoder arm of the
-JAX module is not ported yet.
+environment serves both packages.
+
+``SONATA_DECODE_QUANT=int8`` (default off) quantizes every HiFi-GAN conv
+weight to int8 with one float32 scale per output channel, once, at voice
+load, in numpy with the JAX module's arithmetic (:func:`quantize_decoder`:
+the same ``w_q`` and ``w_scale`` bits).  On the device the decoder keeps
+``w_q`` as an int8 tensor and rescales it to float32 right before each
+convolution (:class:`~.weights.QConv`); activations stay float32.  The
+epilogue's input stays float32 under every arm.
 """
 
 from __future__ import annotations
@@ -39,7 +47,11 @@ FUSED_EPILOGUE_MODES = ("fused", "off")
 #: the JAX package's fused arms; each means ``fused`` here
 FUSED_EPILOGUE_ALIASES = ("lax", "pallas")
 
-_HALF_PI = torch.tensor(np.float32(np.pi / 2))
+DECODE_QUANT_ENV = "SONATA_DECODE_QUANT"
+
+#: float32 pi/2 as a Python float (exactly representable, so the float32
+#: product is the reference's); a host scalar needs no copy to the card
+_HALF_PI = float(np.float32(np.pi / 2))
 
 
 def resolve_fused_epilogue(setting: Optional[str] = None,
@@ -57,6 +69,20 @@ def resolve_fused_epilogue(setting: Optional[str] = None,
     return setting
 
 
+def resolve_decode_quant(setting: Optional[str] = None,
+                         env: Optional[dict] = None) -> Optional[str]:
+    """``int8`` or None (off); a typo fails loudly."""
+    if setting is None:
+        env = os.environ if env is None else env
+        setting = env.get(DECODE_QUANT_ENV, "").strip().lower()
+    if setting in ("", "off", "0"):
+        return None
+    if setting == "int8":
+        return "int8"
+    raise OperationError(
+        f"{DECODE_QUANT_ENV}={setting!r} is not one of int8/off")
+
+
 def fused_epilogue_reference(wav: torch.Tensor, lo: torch.Tensor,
                              hi: torch.Tensor, fade: int):
     """Plain PyTorch version, in the float32 operation order of the
@@ -69,12 +95,11 @@ def fused_epilogue_reference(wav: torch.Tensor, lo: torch.Tensor,
     lo, hi = lo[:, None], hi[:, None]
     n = torch.clamp(hi - lo, max=fade)
     nf = torch.clamp(n, min=1).to(torch.float32)
-    half_pi = _HALF_PI.to(wav.device)
     j = (idx - lo).to(torch.float32)
     k = (idx - (hi - n)).to(torch.float32)
     one = torch.ones((), dtype=torch.float32, device=wav.device)
-    in_gain = torch.where(idx - lo < n, torch.sin(j / nf * half_pi), one)
-    out_gain = torch.where(idx >= hi - n, torch.cos(k / nf * half_pi), one)
+    in_gain = torch.where(idx - lo < n, torch.sin(j / nf * _HALF_PI), one)
+    out_gain = torch.where(idx >= hi - n, torch.cos(k / nf * _HALF_PI), one)
     mask = ((idx >= lo) & (idx < hi)).to(torch.float32)
     tapered = wav * (in_gain * out_gain * mask)
     peak = torch.amax(torch.abs(tapered), dim=-1)
@@ -132,15 +157,17 @@ def fused_epilogue(wav: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     """Taper + quantize decoded windows: the kernel on a CUDA tensor, the
     plain version on a CPU one.  Same arguments and results as
     :func:`fused_epilogue_reference`."""
+    # every decoder arm hands the epilogue float32 (the bf16 decode casts
+    # back before tanh); any other input is refused, never cast
+    if wav.dtype != torch.float32 or wav.dim() != 2:
+        raise OperationError(
+            f"fused_epilogue: expected float32 [B, S], got {wav.dtype} "
+            f"{tuple(wav.shape)}")
     if wav.device.type == "cpu":
         return fused_epilogue_reference(wav, lo, hi, fade)
     if wav.device.type != "cuda":
         raise OperationError(f"fused_epilogue: unsupported device "
                              f"{wav.device}")
-    if wav.dtype != torch.float32 or wav.dim() != 2:
-        raise OperationError(
-            f"fused_epilogue: expected float32 [B, S], got {wav.dtype} "
-            f"{tuple(wav.shape)}")
     b, s = wav.shape
     for name, t in (("lo", lo), ("hi", hi)):
         if (t.dtype != torch.int32 or tuple(t.shape) != (b,)
@@ -174,3 +201,81 @@ def dequantize_chunk(q, peak) -> np.ndarray:
     """Host-side inverse of the fused quantize for one row: restores the
     pre-quantization float32 amplitudes (same 0.01 floor)."""
     return np.asarray(q, np.float32) * (max(float(peak), 0.01) / 32767.0)
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only decoder quantization (numpy, the reference's layouts)
+# ---------------------------------------------------------------------------
+
+def _map_convs(tree, fn):
+    """Apply ``fn`` to every conv-param dict (the {w, b} /
+    {w_q, w_scale, b} leaves) of a decoder subtree, preserving
+    structure."""
+    if isinstance(tree, dict):
+        if "w" in tree or "w_q" in tree:
+            return fn(tree)
+        return {k: _map_convs(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_convs(v, fn) for v in tree]
+    return tree
+
+
+def quantize_decoder(pd):
+    """Per-output-channel symmetric int8 of every decoder conv weight.
+
+    ``pd`` is the reference's decoder tree (numpy leaves, weights
+    ``[K, C_in, C_out]``); each output channel gets its own scale
+    (``max|w| / 127`` over the kernel and input axes).  Biases stay
+    float32.  The arithmetic is the reference's, in numpy, so ``w_q``
+    (int8) and ``w_scale`` (float32 ``[1, 1, C_out]``) are bit-equal to
+    its arrays.  An already-quantized conv passes through."""
+    def q_conv(p):
+        if "w_q" in p:
+            return p  # already quantized (replica copies)
+        w = np.asarray(p["w"], np.float32)
+        scale = np.max(np.abs(w), axis=tuple(range(w.ndim - 1)),
+                       keepdims=True) / 127.0
+        scale = np.maximum(scale, 1e-12).astype(np.float32)
+        wq = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+        out = {"w_q": wq, "w_scale": scale}
+        if "b" in p:
+            out["b"] = p["b"]
+        return out
+
+    return _map_convs(pd, q_conv)
+
+
+def decoder_is_quantized(pd) -> bool:
+    """Whether a decoder (a reference tree, or the port's module tree)
+    holds int8 weights."""
+    if isinstance(pd, torch.nn.Module):
+        return any(name.endswith("w_q") for name, _ in pd.named_buffers())
+    hit = []
+
+    def probe(p):
+        if "w_q" in p:
+            hit.append(True)
+        return p
+
+    _map_convs(pd, probe)
+    return bool(hit)
+
+
+def dequantize_decoder(pd):
+    """Structural inverse on a reference tree: int8 weights rescale to
+    float32 (``w_q * w_scale``, the product :class:`~.weights.QConv` forms
+    on the device before each conv).  A plain float32 tree passes
+    through untouched."""
+    if not decoder_is_quantized(pd):
+        return pd
+
+    def dq(p):
+        if "w_q" not in p:
+            return p
+        out = {"w": np.asarray(p["w_q"]).astype(np.float32)
+               * np.asarray(p["w_scale"], np.float32)}
+        if "b" in p:
+            out["b"] = p["b"]
+        return out
+
+    return _map_convs(pd, dq)

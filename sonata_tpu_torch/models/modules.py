@@ -35,12 +35,13 @@ LRELU_SLOPE = 0.1
 
 def conv_nct(x, p, *, dilation: int = 1, groups: int = 1):
     """SAME-padded 1-D convolution, ``x: [B, C_in, T]`` → ``[B, C_out, T]``."""
-    k_eff = (p.weight.shape[-1] - 1) * dilation + 1
+    w = p.weight  # read once: an int8 conv rescales at every read
+    k_eff = (w.shape[-1] - 1) * dilation + 1
     left, right = k_eff // 2, k_eff - 1 - k_eff // 2
     if left != right:
         x = F.pad(x, (left, right))
         left = 0
-    return F.conv1d(x, p.weight, p.bias, padding=left, dilation=dilation,
+    return F.conv1d(x, w, p.bias, padding=left, dilation=dilation,
                     groups=groups)
 
 

@@ -46,12 +46,36 @@ its draws unless the noise scales are zero.
 Weights load from every format the JAX package reads
 (:meth:`PiperVoice.from_config_path`), and an ``ar*`` voice diacritizes
 its text before G2P (:mod:`..text.tashkeel`, on the voice's device).
+
+Precision arms, as the reference's: ``compute_dtype`` /
+``SONATA_COMPUTE_DTYPE=bfloat16`` runs the HiFi-GAN conv stack in
+bfloat16 (each conv's weights cast at the call, as the reference does;
+the waveform returns to float32 before ``tanh``), and ``decode_quant`` /
+``SONATA_DECODE_QUANT=int8`` keeps the decoder's weights in int8
+(:func:`.decode_opts.quantize_decoder` at load).  Neither changes a
+kernel's input: the gate is in the flow, which stays float32, and the
+epilogue receives float32.
+
+**Warm-up.**  There is no compile on the card; what a first request pays
+is cuDNN building its execution plans the first time a *thread* runs a
+convolution shape (PyTorch keeps that cache per thread).  So the lattice
+of :meth:`lattice_shapes` (the JAX voice's enumeration) is warmed by
+:meth:`warm_shape` on the threads that will serve it: a zero-valued dummy
+goes through the stage coalescer, the window-decode engine and each
+attached batch worker (:meth:`attach_batch_worker`: a scheduler, or the
+voice's own batch thread, :meth:`serve_batches_on_thread`), never
+through the caller's thread.  Every dispatch path notes whether its
+(shape, thread) pair is new (:attr:`first_uses`); the batch path and the
+iteration loop annotate their dispatches ``compile="cold"`` or
+``"cached"`` on that, which the serving scope counts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import logging
+import os
 import threading
 import time
 import weakref
@@ -71,6 +95,7 @@ from ..core import (
     Phonemes,
 )
 from ..device import resolve_device
+from ..serving import scope, tracing
 from ..synth.batching import (
     BatchingCore,
     IterationLoop,
@@ -101,12 +126,133 @@ from .config import ModelConfig, SynthesisConfig, default_phoneme_id_map
 from .import_onnx import import_onnx_weights
 from .import_torch import import_torch_checkpoint
 from .serialization import load_params
-from .weights import VitsModel, params_from_numpy, random_tree
+from .weights import (
+    VitsModel,
+    build_subtree,
+    params_from_numpy,
+    params_to_numpy,
+    random_tree,
+)
 
 #: noise streams of one dispatch: the duration predictor's, the prior's
 DUR_NOISE, PRIOR_NOISE = 0, 1
 
 Sampler = Callable[[int, int, tuple], torch.Tensor]
+
+COMPUTE_DTYPE_ENV = "SONATA_COMPUTE_DTYPE"
+
+
+def resolve_compute_dtype(setting: Optional[str] = None):
+    """``torch.bfloat16`` or None (float32): explicit > ``SONATA_COMPUTE_
+    DTYPE``; anything else fails loudly, as in the reference."""
+    setting = setting or os.environ.get(COMPUTE_DTYPE_ENV)
+    if setting in (None, "", "float32", "f32"):
+        return None
+    if setting in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise OperationError(f"unsupported compute_dtype {setting!r} "
+                         "(use float32 or bfloat16)")
+
+
+def _quantized_params(params, hp):
+    """``params`` (a reference tree or a :class:`VitsModel`) with its
+    decoder in int8; an already-quantized decoder is shared as it is."""
+    if isinstance(params, VitsModel):
+        if decode_opts.decoder_is_quantized(params.dec):
+            return params
+        dec = build_subtree(decode_opts.quantize_decoder(
+            params_to_numpy(params.dec)), ("dec",))
+        model = VitsModel(hp)
+        for name, prm in params.named_parameters(recurse=False):
+            model.register_parameter(name, prm)
+        for name, child in params.named_children():
+            model.add_module(name, dec if name == "dec" else child)
+        return model
+    if decode_opts.decoder_is_quantized(params["dec"]):
+        return params
+    params = dict(params)
+    params["dec"] = decode_opts.quantize_decoder(params["dec"])
+    return params
+
+
+class _WarmShape(str):
+    """A zero-valued warm-up request for one (b, t, f) shape: submitted
+    through a batch worker (a scheduler) as if it were a sentence, so the
+    worker's own thread runs the dummy (:meth:`PiperVoice.speak_batch`)."""
+
+    def __new__(cls, shape):
+        obj = super().__new__(cls, "")
+        obj.shape = tuple(shape)
+        return obj
+
+
+class _BatchThread:
+    """The one thread a voice's batch synthesis runs on when no scheduler
+    serves it (:meth:`PiperVoice.serve_batches_on_thread`).
+
+    A ``speak_batch`` from any other thread is carried here whole, in the
+    caller's context (its trace), so the warm-up lattice, which reaches
+    this thread as an attached batch worker, warms the thread that serves.
+    Each call is reported to the scope as one dispatch, annotated
+    ``compile="cold"`` when one of its groups met its shape here for the
+    first time, as a scheduler's dispatch is."""
+
+    def __init__(self, voice: "PiperVoice"):
+        self._voice_ref = weakref.ref(voice)
+        self._local = threading.local()
+        self._core = BatchingCore(
+            dispatch=self._dispatch, max_batch=1, max_wait_s=0.0,
+            name="sonata_batch_thread",
+            alive=lambda: self._voice_ref() is not None,
+            closed_reason="batch thread closed (voice unloaded)", poll_s=5.0)
+
+    def on_thread(self) -> bool:
+        return getattr(self._local, "active", False)
+
+    def close(self) -> None:
+        self._core.shutdown(join_timeout_s=10.0)
+
+    def call(self, phoneme_batches, speakers=None, scales=None) -> list:
+        """Blocking: ``speak_batch`` on this thread."""
+        return self._put(lambda v: v.speak_batch(
+            phoneme_batches, speakers=speakers, scales=scales)).result()
+
+    def submit(self, phonemes, speaker=None, scales=None,
+               deadline=None) -> Future:
+        """One sentence, as a scheduler takes it (the warm-up's dummies)."""
+        return self._put(lambda v: v.speak_batch(
+            [phonemes], speakers=None if speaker is None else [speaker],
+            scales=None if scales is None else [scales])[0])
+
+    def _put(self, fn) -> Future:
+        item = WorkItem((fn, contextvars.copy_context()))
+        self._core.put(item)
+        return item.future
+
+    def _dispatch(self, group: list) -> None:
+        v = self._voice_ref()
+        for item in group:
+            fn, ctx = item.payload
+            attrs = {} if v is None or v.scope_voice is None else {
+                "voice": v.scope_voice}
+            t0 = time.monotonic()
+            try:
+                if v is None:
+                    raise OperationError("voice was garbage-collected")
+                out = ctx.run(self._run, fn, v, attrs)
+            except Exception as e:
+                try_set_exception(item.future, e)
+                continue
+            scope.note_dispatch(time.monotonic() - t0, attrs)
+            try_set_result(item.future, out)
+
+    def _run(self, fn, v, attrs):
+        self._local.active = True
+        try:
+            with tracing.dispatch_scope(attrs):
+                return fn(v)
+        finally:
+            self._local.active = False
 
 
 class PiperVoice(BaseModel):
@@ -119,10 +265,19 @@ class PiperVoice(BaseModel):
     def __init__(self, config: ModelConfig, params, *, device=None,
                  seed: int = 0, sampler: Optional[Sampler] = None,
                  tashkeel: Optional[TashkeelEngine] = None,
-                 dispatch_policy: Optional[DispatchPolicy] = None):
+                 dispatch_policy: Optional[DispatchPolicy] = None,
+                 compute_dtype: Optional[str] = None,
+                 decode_quant: Optional[str] = None):
         self.device = resolve_device(device)
         self.config = config
         self.hp = config.hyper
+        # int8 weight-only decoder (SONATA_DECODE_QUANT=int8): quantized
+        # once, here, in numpy; QConv rescales before each conv
+        self.decode_quant = decode_opts.resolve_decode_quant(decode_quant)
+        if self.decode_quant == "int8":
+            params = _quantized_params(params, self.hp)
+        # bfloat16 conv stack for the decoder (SONATA_COMPUTE_DTYPE)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.fused_epilogue = decode_opts.resolve_fused_epilogue()
         if self.fused_epilogue == "off" and self.device.type == "cuda":
             raise OperationError(
@@ -156,6 +311,26 @@ class PiperVoice(BaseModel):
         self._stream_coalescer: "Optional[_StreamDecodeCoalescer]" = None
         self._iter_decoder: "Optional[_IterationStreamDecoder]" = None
         self._voice_closed = False
+        #: voice id the serving runtime registered this voice under (the
+        #: iteration loop's scope attribution names it)
+        self.scope_voice: Optional[str] = None
+        # warm-up bookkeeping: the (engine, shape) pairs each thread has
+        # run (thread-local: the cuDNN plans they stand for die with the
+        # thread), every first use in order, the pairs a warm-up ran, and
+        # the batch workers warm_shape sends the full pipeline through
+        self._shapes_seen = threading.local()
+        self._shape_lock = threading.Lock()
+        #: (engine, shape, thread name) of every first use, in order
+        self.first_uses: list = []
+        #: the (engine, shape) pairs :meth:`warm_shape` has run
+        self.warmed_shapes: set = set()
+        self._batch_workers: list = []
+        self._batch_thread: Optional[_BatchThread] = None
+        # frames-per-id estimate (the reference's decaying upper bound):
+        # the port's frame budget is exact, so this only sizes the lattice
+        self._frames_per_id = 2.5
+        self._fpi_observed = False
+        self._fpi_lock = threading.Lock()
         # None resolves lazily at first use (env overrides, then the
         # device's fast path or probe), so construction never probes
         self._dispatch_policy = dispatch_policy
@@ -219,6 +394,8 @@ class PiperVoice(BaseModel):
     def random(cls, config: Optional[ModelConfig] = None, *, seed: int = 0,
                device=None, tashkeel: Optional[TashkeelEngine] = None,
                dispatch_policy: Optional[DispatchPolicy] = None,
+               compute_dtype: Optional[str] = None,
+               decode_quant: Optional[str] = None,
                **config_overrides) -> "PiperVoice":
         """A randomly-initialized voice (tests, benchmarks, dry runs): the
         reference's ``init_vits`` shapes, drawn from a ``torch.Generator``
@@ -238,7 +415,26 @@ class PiperVoice(BaseModel):
                            n_speakers=config.num_speakers,
                            generator=torch.Generator().manual_seed(seed))
         return cls(config, tree, device=device, seed=seed, tashkeel=tashkeel,
-                   dispatch_policy=dispatch_policy)
+                   dispatch_policy=dispatch_policy,
+                   compute_dtype=compute_dtype, decode_quant=decode_quant)
+
+    def replica_for_device(self, device, *,
+                           seed_offset: int = 0) -> "PiperVoice":
+        """A copy of this voice on ``device`` (replica-pool serving): its
+        own engines, noise stream (``seed_offset`` keeps replica draws
+        distinct) and warm-up state, with the same precision arms.  The
+        parameters move with ``.to(device)``, which shares them when the
+        device is the voice's own (an int8 decoder is shared, never
+        quantized again)."""
+        replica = PiperVoice(
+            self.config, self.model, device=device,
+            seed=self._seed + seed_offset, tashkeel=self._tashkeel,
+            dispatch_policy=self._dispatch_policy,
+            compute_dtype=("bfloat16" if self.compute_dtype is not None
+                           else "float32"),
+            decode_quant=self.decode_quant or "off")
+        replica.scope_voice = self.scope_voice
+        return replica
 
     # ------------------------------------------------------------------
     # Model protocol
@@ -309,6 +505,252 @@ class PiperVoice(BaseModel):
         return self.speak_batch([phonemes])[0]
 
     # ------------------------------------------------------------------
+    # warm-up: the bucket lattice, run on the threads that serve it
+    # ------------------------------------------------------------------
+
+    def _first_use(self, engine: str, shape: tuple) -> bool:
+        """Whether this thread runs ``engine`` at ``shape`` for the first
+        time (then it is noted in :attr:`first_uses`): the first run of a
+        convolution shape on a thread builds cuDNN's plans, later runs
+        reuse them."""
+        seen = getattr(self._shapes_seen, "pairs", None)
+        if seen is None:
+            seen = self._shapes_seen.pairs = set()
+        if (engine, shape) in seen:
+            return False
+        seen.add((engine, shape))
+        with self._shape_lock:
+            self.first_uses.append(
+                (engine, shape, threading.current_thread().name))
+        return True
+
+    def attach_batch_worker(self, worker: Callable[[], Any]) -> None:
+        """Register a batch worker: ``worker()`` returns the scheduler (or
+        anything with ``submit(phonemes)``) whose thread runs this voice's
+        ``speak_batch`` — called per warm-up, since a replica's breaker can
+        rebuild its scheduler.  :meth:`warm_shape` sends each
+        full-pipeline shape through every attached worker."""
+        self._batch_workers.append(worker)
+
+    def serve_batches_on_thread(self) -> None:
+        """Run every later ``speak_batch`` on one thread of this voice's own
+        (a server's voice that no scheduler serves: its gRPC handler
+        threads would each meet every shape cold).  The thread is attached
+        as a batch worker, so the lattice warms it; :meth:`close` stops it,
+        and a closed voice synthesizes on the caller's thread again."""
+        with self._engine_lock:
+            if self._batch_thread is not None:
+                return
+            self._batch_thread = _BatchThread(self)
+        self.attach_batch_worker(lambda: self._batch_thread)
+
+    def _warm_full(self, shape) -> None:
+        """The batch path's dummy at ``(b, t, f)``, on this thread: encode,
+        acoustics at frame bucket ``f``, decode and quantize, zeros in."""
+        b, t, f = shape
+        sc = self.get_fallback_synthesis_config()
+        with self._device_scope():
+            z, y_lengths, _c, f, g, _sid = self._encode_and_acoustics(
+                [[0] * t] * b, sc, frames=f)
+            self._decode_quantize(z, y_lengths, g)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream().synchronize()
+        self._first_use("batch", (b, t, f))
+        with self._shape_lock:
+            self.warmed_shapes.add(("batch", (b, t, f)))
+
+    # Representative prewarm texts: short / medium / long sentences cover
+    # the common text buckets (and, batched together, the common group
+    # shapes).
+    _PREWARM_TEXTS = [
+        "Hello there.",
+        "This server compiles its executables before the first request.",
+        "A longer sentence exercises the larger text and frame buckets so "
+        "that real traffic arriving right after startup never waits on a "
+        "fresh compilation of the synthesis pipeline.",
+    ]
+
+    def prewarm(self, texts: Optional[list[str]] = None, *,
+                streaming: bool = False, chunk_size: int = 55,
+                chunk_padding: int = 3) -> int:
+        """Warm the common shapes before serving traffic (the reference's
+        ``prewarm``, on the serving threads): a representative batch
+        through every attached batch worker, then the neighbour frame
+        buckets of the shapes it met; with ``streaming=True`` one streamed
+        drain per text bucket (through the stream engines, on their
+        threads) and then the other coalesced batch size of every stream
+        shape.  Returns the number of batch-path shapes warm."""
+        phonemes = [p for t in (texts or self._PREWARM_TEXTS)
+                    for p in self.phonemize_text(t)]
+        if not phonemes:  # e.g. caller texts of pure punctuation
+            return self._batch_shapes_warm()
+        for worker in self._batch_workers:
+            sched = worker()
+            for fut in [sched.submit(p) for p in phonemes]:
+                fut.result()
+        self.prewarm_neighbor_buckets()
+        if streaming:
+            by_bucket: dict[int, str] = {}
+            for p in phonemes:
+                tb = bucket_for(len(self.config.phonemes_to_ids(p)),
+                                TEXT_BUCKETS)
+                if tb not in by_bucket or len(p) > len(by_bucket[tb]):
+                    by_bucket[tb] = p
+            for p in by_bucket.values():
+                for _chunk in self.stream_synthesis(p, chunk_size,
+                                                    chunk_padding):
+                    pass
+            self._prewarm_stream_batches()
+        return self._batch_shapes_warm()
+
+    def _batch_shapes_warm(self) -> int:
+        with self._shape_lock:
+            return len({s for e, s, _n in self.first_uses if e == "batch"})
+
+    def _prewarm_stream_batches(self) -> None:
+        """Warm the other coalesced batch size of every stream shape met so
+        far: the stage coalescer runs at {1, max} rows, the dispatch-mode
+        decode coalescer at {1, max}, the iteration loop at every rung of
+        the ladder up to its max (the reference's rule)."""
+        with self._shape_lock:
+            met = [(e, s) for e, s, _n in self.first_uses]
+        co = self._stream_decoder
+        if isinstance(co, _IterationStreamDecoder):
+            rungs = [b for b in BATCH_BUCKETS if b <= co._max_batch]
+        else:
+            rungs = sorted({1, co._max_batch})
+        for width, has_sid in sorted({(s[0], s[2]) for e, s in met
+                                      if e == "window"}):
+            for b in rungs:
+                self.warm_shape(("wdec", width, b, has_sid))
+        stage_max = self._stream_stages._max_batch
+        for t, f in sorted({(s[1], s[2]) for e, s in met if e == "stage"}):
+            for b in sorted({1, stage_max}):
+                self._stream_stages.warm(b, t, f)
+
+    def prewarm_neighbor_buckets(self) -> None:
+        """Warm the frame buckets adjacent to every batch-path shape met so
+        far (one :meth:`warm_shape` each)."""
+        with self._shape_lock:
+            met = sorted({s for e, s, _n in self.first_uses if e == "batch"})
+        for (b, t, f) in met:
+            if f not in FRAME_BUCKETS:
+                continue  # beyond-table bucket: no neighbor schedule
+            i = FRAME_BUCKETS.index(f)
+            for nf in {FRAME_BUCKETS[max(i - 1, 0)],
+                       FRAME_BUCKETS[min(i + 1, len(FRAME_BUCKETS) - 1)]
+                       } - {f}:
+                self.warm_shape((b, t, nf))
+
+    def lattice_shapes(self, mode: str = "full") -> list:
+        """Enumerate the (batch, text, frame) shapes a restart must warm:
+        the reference's enumeration, unchanged.
+
+        - text axis: every :data:`TEXT_BUCKETS` entry;
+        - frame axis: the range of buckets the frames-per-id estimate
+          gives across the text bucket's id-length span — run one real
+          calibration utterance first, so the estimate is an observed one
+          — plus the next bucket up in every mode, and the one below the
+          range in ``full`` mode;
+        - batch axis: 1, plus in ``full`` mode the canonical coalesced
+          batch of the scheduler (if the policy coalesces).
+
+        ``minimal`` is the batch-1 subset of ``full``; ``off`` returns
+        [].  In iteration mode the window-decode shapes follow
+        (:meth:`_iteration_lattice_shapes`).  Ordered smallest-first."""
+        if mode == "off":
+            return []
+        batches = {1}
+        if mode == "full":
+            try:
+                kw = self.dispatch_policy.scheduler_kwargs()
+                from ..utils.buckets import canonical_dispatch_batch
+
+                canonical = canonical_dispatch_batch(kw["max_batch"])
+            except Exception:  # policy probe failure must not block boot
+                canonical = 1
+            if canonical > 1:
+                batches.add(canonical)
+        ls = float(self.get_fallback_synthesis_config().length_scale)
+        shapes: list = []
+        n_fb = len(FRAME_BUCKETS)
+        for ti, t in enumerate(TEXT_BUCKETS):
+            lo_ids = TEXT_BUCKETS[ti - 1] + 1 if ti > 0 else 1
+            f_lo = self._estimate_frame_bucket(lo_ids * max(ls, 0.05))
+            f_hi = self._estimate_frame_bucket(t * max(ls, 0.05))
+            frames = {f_lo, f_hi}
+            if f_lo in FRAME_BUCKETS:
+                i_lo = FRAME_BUCKETS.index(f_lo)
+                i_hi = (FRAME_BUCKETS.index(f_hi)
+                        if f_hi in FRAME_BUCKETS else n_fb - 1)
+                if mode == "full":
+                    i_lo = max(i_lo - 1, 0)
+                frames.update(
+                    FRAME_BUCKETS[i]
+                    for i in range(i_lo, min(i_hi + 2, n_fb)))
+            for b in sorted(batches):
+                for f in sorted(frames):
+                    shapes.append((b, t, f))
+        shapes.sort(key=lambda s: (s[1], s[0], s[2]))
+        shapes.extend(self._iteration_lattice_shapes(mode))
+        return shapes
+
+    def _iteration_lattice_shapes(self, mode: str) -> list:
+        """Iteration-mode window-decode shapes ``("wdec", width, batch,
+        has_sid)``, when ``SONATA_BATCH_MODE`` resolves to iteration: every
+        rung of the loop's batch ladder (``minimal``: batch 1) at every
+        window width a chunk plan can produce (the reference's rule)."""
+        try:
+            policy = self.dispatch_policy
+            if resolve_batch_mode(policy) != "iteration":
+                return []
+            kwargs = policy.stream_decode_kwargs()
+        except Exception:  # policy probe failure must not block boot
+            return []
+        max_b = kwargs["max_batch"]
+        if max_b <= 1:
+            max_b = COALESCING_DEFAULTS["stream_decode_max_batch"]
+        ladder = [b for b in BATCH_BUCKETS if b <= max_b]
+        if mode == "minimal":
+            ladder = [1]
+        widths = [w for w in FRAME_BUCKETS if w <= 1536]
+        has_sid = bool(self.multi_speaker)
+        return [("wdec", w, b, has_sid) for w in widths for b in ladder]
+
+    def warm_shape(self, shape: tuple) -> None:
+        """Make one lattice shape warm on the threads that serve it.
+
+        - ``("wdec", width, b, has_sid)``: a zero-valued window decode of
+          ``b`` rows (with the epilogue when it is on), run by the
+          window-decode engine that new streams use, on its thread;
+        - ``(b, t, f)``: the full pipeline's dummy at ``(b, t, f)`` through
+          every attached batch worker (:meth:`attach_batch_worker`), on its
+          thread; and for ``b == 1``, encode + acoustics at ``(t, f)`` on
+          the stage coalescer's thread at both batch sizes it dispatches
+          (1 and its canonical max).
+
+        Blocks until the dummies ran.  Nothing runs on the caller's
+        thread: a thread that never serves would keep plans no request
+        uses.  The dummies feed no estimate and move no noise counter."""
+        if shape and shape[0] == "wdec":
+            _tag, width, b, has_sid = shape
+            self._stream_decoder.warm(width, b, has_sid).result()
+            with self._shape_lock:
+                self.warmed_shapes.add(
+                    ("window", (width, b, has_sid,
+                                self.fused_epilogue != "off")))
+            return
+        b, t, f = shape
+        futures = [worker().submit(_WarmShape((b, t, f)))
+                   for worker in self._batch_workers]
+        if b == 1:
+            stages = self._stream_stages
+            for sb in sorted({1, stages._max_batch}):
+                stages.warm(sb, t, f)
+        for fut in futures:
+            fut.result()
+
+    # ------------------------------------------------------------------
     # batch synthesis
     # ------------------------------------------------------------------
 
@@ -324,6 +766,11 @@ class PiperVoice(BaseModel):
         synthesis configs (None entries fall back likewise)."""
         if not phoneme_batches:
             return []
+        bt = self._batch_thread
+        if bt is not None and not bt.on_thread():
+            return bt.call(phoneme_batches, speakers, scales)
+        if any(isinstance(p, _WarmShape) for p in phoneme_batches):
+            return self._speak_warm(phoneme_batches, speakers, scales)
         sc = self.get_fallback_synthesis_config()
         ids_list = [self._encode_phonemes(p) for p in phoneme_batches]
         n = len(ids_list)
@@ -353,6 +800,29 @@ class PiperVoice(BaseModel):
         info = self.audio_output_info()
         return [Audio(AudioSamples(wavs[i]), info, inference_ms=row_ms[i])
                 for i in range(n)]
+
+    def _speak_warm(self, phoneme_batches, speakers, scales) -> list[Audio]:
+        """A batch worker's dispatch holding warm-up requests: each runs
+        its dummy shape here, on the worker's thread (silence comes back
+        for it); real sentences batched beside them synthesize as usual."""
+        out: list = [None] * len(phoneme_batches)
+        real = [i for i, p in enumerate(phoneme_batches)
+                if not isinstance(p, _WarmShape)]
+        for i, p in enumerate(phoneme_batches):
+            if isinstance(p, _WarmShape):
+                self._warm_full(p.shape)
+                out[i] = Audio(AudioSamples(np.zeros(0, np.float32)),
+                               self.audio_output_info())
+        if real:
+            audios = self.speak_batch(
+                [phoneme_batches[i] for i in real],
+                speakers=([speakers[i] for i in real]
+                          if speakers is not None else None),
+                scales=([scales[i] for i in real]
+                        if scales is not None else None))
+            for i, a in zip(real, audios):
+                out[i] = a
+        return out
 
     def _plan_dispatch_groups(self, ids_list: list[list[int]],
                               sc: SynthesisConfig,
@@ -489,39 +959,87 @@ class PiperVoice(BaseModel):
             scope.enter_context(torch.cuda.device(self.device))
         return scope
 
+    @staticmethod
+    def _row_length_scales(sc, n: int, scales=None) -> list:
+        return [float(scales[i].length_scale
+                      if scales is not None and i < len(scales)
+                      and scales[i] is not None else sc.length_scale)
+                for i in range(n)]
+
     @torch.inference_mode()
     def _encode_and_acoustics(self, ids_list, sc, speakers=None,
-                              scales=None, n_real: Optional[int] = None):
+                              scales=None, n_real: Optional[int] = None,
+                              *, frames: Optional[int] = None):
         """Stages 1 and 2 for one padded group: returns (z [B, f, C],
         y_lengths [B], per-row frame counts (host), f, g, sid).
 
         ``n_real``: how many leading rows are real (default: all); the frame
-        bucket is taken from their largest count."""
+        bucket is taken from their largest count, which also feeds the
+        frames-per-id estimate the warm-up lattice is enumerated with.
+        ``frames``: a warm-up dummy's frame bucket; it runs on zero noise
+        (the voice's noise counter does not move) and reads no count."""
         n_real = len(ids_list) if n_real is None else n_real
         ids, lens, b, t = self._pad_batch(ids_list)
         sid = self._sid_array(sc, b, speakers)
         nw, ls, ns = self._scale_arrays(sc, b, scales)
-        counter = self._next_counter()
+        c = self.hp.inter_channels
+        if frames is None:
+            counter = self._next_counter()
+            dur_noise = self._noise(counter, DUR_NOISE, (b, t, 2))
+        else:
+            dur_noise = torch.zeros((b, t, 2), device=self.device)
         m_p, logs_p, w_ceil, x_mask, g = vits.encode_text(
-            self.model, self.hp, ids, lens,
-            self._noise(counter, DUR_NOISE, (b, t, 2)),
+            self.model, self.hp, ids, lens, dur_noise,
             noise_w=nw, length_scale=ls, sid=sid)
-        # exact frame budget: one [B] device→host copy, then the bucket
-        frames = w_ceil.sum(dim=1).cpu().numpy().astype(np.int64)
-        f = bucket_for(max(int(frames[:n_real].max()), 1), FRAME_BUCKETS)
+        if frames is None:
+            # exact frame budget: one [B] device→host copy, then the bucket
+            counts = w_ceil.sum(dim=1).cpu().numpy().astype(np.int64)
+            actual = max(int(counts[:n_real].max()), 1)
+            f = bucket_for(actual, FRAME_BUCKETS)
+            row_ls = self._row_length_scales(sc, n_real, scales)
+            self._observe_frames(max(len(ids_list[i]) * max(row_ls[i], 0.05)
+                                     for i in range(n_real)), actual)
+            prior = self._noise(counter, PRIOR_NOISE, (b, f, c))
+        else:
+            counts = np.ones((b,), np.int64)
+            f = frames
+            prior = torch.zeros((b, f, c), device=self.device)
         z, _y_mask, y_lengths = vits.acoustics(
-            self.model, self.hp, m_p, logs_p, w_ceil, x_mask,
-            self._noise(counter, PRIOR_NOISE,
-                        (b, f, self.hp.inter_channels)),
+            self.model, self.hp, m_p, logs_p, w_ceil, x_mask, prior,
             noise_scale=ns, max_frames=f, g=g)
-        return z, y_lengths, frames, f, g, sid
+        return z, y_lengths, counts, f, g, sid
+
+    # -- the frames-per-id estimate (sizes the lattice's frame axis) ----------
+    def _estimate_frame_bucket(self, weighted_ids: float) -> int:
+        """The reference's estimate: ``weighted_ids`` (``len(ids) *
+        length_scale``) × frames-per-id × 1.08, bucketed."""
+        with self._fpi_lock:
+            fpi = self._frames_per_id
+        est = weighted_ids * fpi * 1.08
+        return bucket_for(max(int(est), 1), FRAME_BUCKETS)
+
+    def _observe_frames(self, weighted_ids: float, frames: int) -> None:
+        """The reference's update: the first observation replaces the prior
+        (with a 15% margin), later ones form a decaying upper bound."""
+        ratio = frames / max(weighted_ids, 1.0)
+        with self._fpi_lock:
+            if not self._fpi_observed:
+                self._frames_per_id = ratio * 1.15
+            else:
+                self._frames_per_id = max(self._frames_per_id * 0.995, ratio)
+            self._fpi_observed = True
+
+    def _decode(self, z, g=None):
+        """HiFi-GAN under the voice's precision arms → float32 [B, S]."""
+        return vits.decode_with(self.model, self.hp, z, g=g,
+                                compute_dtype=self.compute_dtype)
 
     def _decode_quantize(self, z, y_lengths, g):
         """HiFi-GAN decode + on-device peak-scaled int16 quantization
         (:func:`_quantize_rows`); the peak goes out beside the samples so
         the host restores the amplitudes (the reference's
         ``_decode_quantize``, in plain torch)."""
-        wav = vits.decode_with(self.model, self.hp, z, g=g)
+        wav = self._decode(z, g)
         wav_lengths = y_lengths * self.hp.hop_length
         wav_i16, peak = _quantize_rows(wav, wav_lengths)
         return wav_i16, wav_lengths, peak
@@ -534,8 +1052,24 @@ class PiperVoice(BaseModel):
         """One dispatch group: ids → float32 waveforms (host), one per
         real row, at their true lengths."""
         n_real = len(ids_list)
-        z, y_lengths, _frames, _f, g, _sid = self._encode_and_acoustics(
+        z, y_lengths, _frames, f, g, _sid = self._encode_and_acoustics(
             ids_list, sc, speakers=speakers, scales=scales)
+        b, t = z.shape[0], bucket_for(max(len(i) for i in ids_list),
+                                      TEXT_BUCKETS)
+        cold = self._first_use("batch", (b, t, f))
+        # dispatch attribution for a scheduler around speak_batch (a no-op
+        # without one): the padded shape, its padding, whether this thread
+        # met the shape for the first time, and (the reference's rule) a
+        # non-default length scale, whose frame bucket the lattice's
+        # coverage promise leaves out
+        scaled = any(abs(ls - sc.length_scale) > 1e-9 for ls in
+                     self._row_length_scales(sc, n_real, scales))
+        tracing.annotate_dispatch_group(
+            batch_bucket=b, text_bucket=t, frame_bucket=f, rows=n_real,
+            padding_rows=b - n_real,
+            padding_ratio=round((b - n_real) / b, 3),
+            compile="cold" if cold else "cached",
+            **({"scaled": True} if scaled else {}))
         wav_i16, wav_lengths, peaks = self._decode_quantize(z, y_lengths, g)
         wav_i16 = wav_i16[:n_real].cpu().numpy()
         wav_lengths = wav_lengths[:n_real].cpu().numpy()
@@ -554,7 +1088,7 @@ class PiperVoice(BaseModel):
         waveform ``(wav,)`` instead.  The counterpart of the reference's
         ``_decode_windows_fused_fn``."""
         g = vits.speaker_embedding(self.model, sid)
-        wav = vits.decode_with(self.model, self.hp, windows, g=g)
+        wav = self._decode(windows, g)
         if lo is None:
             return (wav,)
         return decode_opts.fused_epilogue(wav, lo, hi, CROSSFADE_SAMPLES)
@@ -653,15 +1187,16 @@ class PiperVoice(BaseModel):
             iteration.start_draining()
 
     def close(self) -> None:
-        """Stop the streaming engines' threads and fail their queued work.
+        """Stop the streaming engines' and the batch thread's threads and
+        fail their queued work.
         Idempotent and terminal for streaming (a closed voice still
         synthesizes batches; a stream raises :class:`OperationError`)."""
         with self._engine_lock:
             self._voice_closed = True
             engines = (self._stream_coalescer, self._stage_coalescer,
-                       self._iter_decoder)
+                       self._iter_decoder, self._batch_thread)
             self._stream_coalescer = self._stage_coalescer = None
-            self._iter_decoder = None
+            self._iter_decoder = self._batch_thread = None
         for engine in engines:
             if engine is not None:
                 engine.close()
@@ -811,6 +1346,22 @@ def _assemble_window_dispatch(v: PiperVoice, key, payloads: list,
         return _HostCopy(v._decode_windows(windows, sid, lo, hi))
 
 
+def _warm_window_dispatch(v: PiperVoice, width: int, b: int,
+                          has_sid: bool):
+    """A warm-up window decode: ``b`` zero windows of ``width`` frames,
+    through the same assembly as real ones (with the epilogue when the
+    voice runs it).  Runs on an engine's worker thread; returns the copy
+    and whether this thread met the shape for the first time."""
+    fused = v.fused_epilogue != "off"
+    window = torch.zeros((width, v.hp.inter_channels), device=v.device)
+    sid = 0 if has_sid else None
+    payload = ((window, sid, 0, width * v.hp.hop_length) if fused
+               else (window, sid))
+    cold = v._first_use("window", (width, b, has_sid, fused))
+    return _assemble_window_dispatch(v, (width, has_sid, fused), [payload],
+                                     b), cold
+
+
 def _fetch_window_results(copy: _HostCopy, n: int, fused: bool) -> list:
     """The finisher's half: wait for the copy, one result per real row —
     an ``(int16 row, peak)`` pair when fused, else a float32 row."""
@@ -868,7 +1419,14 @@ class _StreamDecodeCoalescer:
         tapered on the device.  ``stream`` (the iteration loop's handle) is
         ignored: dispatch mode holds no resident stream."""
         payload, key = _window_payload(z_row, start, width, sid, epilogue)
-        item = WorkItem(payload, key=key)
+        return self._put(WorkItem(payload, key=key))
+
+    def warm(self, width: int, b: int, has_sid: bool) -> Future:
+        """A warm-up decode of ``b`` zero windows on this engine's thread
+        (the batch sizes it dispatches are 1 and its max)."""
+        return self._put(WorkItem(None, key=("warm", width, b, has_sid)))
+
+    def _put(self, item: WorkItem) -> Future:
         if self._core.closed:
             try_set_exception(item.future, OperationError(self._reason))
             return item.future
@@ -879,10 +1437,14 @@ class _StreamDecodeCoalescer:
         v = self._voice_ref()
         if v is None:
             raise OperationError("voice was garbage-collected")
+        key = group[0].key
+        if key[0] == "warm":
+            return _warm_window_dispatch(v, *key[1:])[0], "warm"
         n = len(group)
         b = self._max_batch if n > 1 else 1
+        v._first_use("window", (key[0], b, key[1], key[2]))
         copy = _assemble_window_dispatch(
-            v, group[0].key, [item.payload for item in group], b)
+            v, key, [item.payload for item in group], b)
         for stat, count in (("requests", n), ("dispatches", 1),
                             ("rows", n), ("padded_rows", b - n)):
             self._core.bump(stat, count)
@@ -890,8 +1452,12 @@ class _StreamDecodeCoalescer:
 
     def _finish(self, group: list, ticket) -> None:
         copy, fused = ticket
-        for item, res in zip(group, _fetch_window_results(copy, len(group),
-                                                          fused)):
+        if fused == "warm":
+            copy.wait()
+            results = [None] * len(group)
+        else:
+            results = _fetch_window_results(copy, len(group), fused)
+        for item, res in zip(group, results):
             try_set_result(item.future, res)
 
 
@@ -933,19 +1499,42 @@ class _IterationStreamDecoder:
         payload, key = _window_payload(z_row, start, width, sid, epilogue)
         return self._loop.submit(stream, key, payload)
 
+    def warm(self, width: int, b: int, has_sid: bool) -> Future:
+        """A warm-up decode of ``b`` zero windows on the loop's thread: a
+        stream of its own joins, rides one iteration and retires."""
+        handle = self._loop.join()
+        fut = self._loop.submit(handle, ("warm", width, b, has_sid), None)
+        fut.add_done_callback(lambda _f: self._loop.retire(handle))
+        return fut
+
     def _dispatch(self, key, payloads, b: int):
-        """Enqueue one iteration's decode and its copy to the host."""
+        """Enqueue one iteration's decode and its copy to the host, and
+        say whether this thread met its shape before (``compile``)."""
         v = self._voice_ref()
         if v is None:
             raise OperationError("voice was garbage-collected")
-        copy = _assemble_window_dispatch(v, key, payloads, b)
-        return ((copy, len(payloads), key[2]),
-                {"frame_bucket": key[0], "text_bucket": 0})
+        if key[0] == "warm":
+            width = key[1]
+            copy, cold = _warm_window_dispatch(v, *key[1:])
+            ticket = (copy, len(payloads), "warm")
+        else:
+            width, has_sid, fused = key
+            cold = v._first_use("window", (width, b, has_sid, fused))
+            copy = _assemble_window_dispatch(v, key, payloads, b)
+            ticket = (copy, len(payloads), fused)
+        attrs = {"frame_bucket": width, "text_bucket": 0,
+                 "compile": "cold" if cold else "cached"}
+        if v.scope_voice is not None:
+            attrs["voice"] = v.scope_voice
+        return ticket, attrs
 
     @staticmethod
     def _finish(ticket):
         """Wait for the copy: the only host sync of an iteration."""
         copy, n, fused = ticket
+        if fused == "warm":
+            copy.wait()
+            return [None] * n
         return _fetch_window_results(copy, n, fused)
 
 
@@ -990,10 +1579,32 @@ class _StreamStageCoalescer:
         self._core.put(item)
         return item.future.result()
 
+    def warm(self, b: int, t: int, f: int) -> None:
+        """Blocking: a warm-up encode + acoustics of ``b`` zero rows at text
+        bucket ``t`` and frame bucket ``f``, on this engine's thread."""
+        if self._core.closed:
+            raise OperationError(self._reason)
+        item = WorkItem(None, key=("warm", b, t, f))
+        self._core.put(item)
+        item.future.result()
+
     def _dispatch(self, group: list) -> None:
         v = self._voice_ref()
         if v is None:
             raise OperationError("voice was garbage-collected")
+        if group[0].key[0] == "warm":
+            _tag, b, t, f = group[0].key
+            sc = v.get_fallback_synthesis_config()
+            with v._device_scope():
+                v._encode_and_acoustics([[0] * t] * b, sc, frames=f)
+                if v.device.type == "cuda":
+                    torch.cuda.current_stream().synchronize()
+            v._first_use("stage", (b, t, f))
+            with v._shape_lock:
+                v.warmed_shapes.add(("stage", (b, t, f)))
+            for item in group:
+                try_set_result(item.future, None)
+            return
         n = len(group)
         ids_list = [item.payload[0] for item in group]
         scs = [item.payload[1] for item in group]
@@ -1006,6 +1617,7 @@ class _StreamStageCoalescer:
         with v._device_scope():
             z, _y, frames, f, _g, _sid = v._encode_and_acoustics(
                 ids_list, scs[0], speakers=speakers, scales=scs, n_real=n)
+        v._first_use("stage", (z.shape[0], group[0].key[0], f))
         for stat, count in (("requests", n), ("dispatches", 1),
                             ("rows", n), ("padded_rows", z.shape[0] - n)):
             self._core.bump(stat, count)

@@ -15,8 +15,10 @@ Differences from the reference, on purpose:
   keys: ``duration_predictor_reverse``/``encode_text`` a ``[B, T, 2]``
   draw, ``acoustics`` a ``[B, F, C]`` draw.  :func:`per_row_normal` is the
   port's own sampler, with the reference's per-row rule.
-- Float32 only, no device mesh: the bf16 decode arm, the int8 decoder and
-  the sequence-parallel stages are later work.
+- No device mesh: the sequence-parallel stages are later work.  The
+  decoder has the reference's precision arms (``compute_dtype``, and int8
+  weights through :class:`~.weights.QConv`); every other stage is
+  float32.
 
 Public functions keep ``[batch, time, channels]`` and ``[B, T, 1]`` masks;
 the flow and the decoder run in torch's ``[B, C, T]`` inside.
@@ -204,35 +206,62 @@ def flow_reverse(pf, hp: VitsHyperParams, z, mask, g=None):
 # stage 3: HiFi-GAN decoder
 # ---------------------------------------------------------------------------
 
-def decode_with(p, hp: VitsHyperParams, z, g=None):
+class _Cast:
+    """A convolution's weight and bias in the compute dtype, cast at the
+    call (an int8 weight is rescaled to float32 first, at its read)."""
+
+    __slots__ = ("weight", "bias")
+
+    def __init__(self, conv, dtype):
+        self.weight = conv.weight.to(dtype)
+        self.bias = None if conv.bias is None else conv.bias.to(dtype)
+
+
+def decode_with(p, hp: VitsHyperParams, z, g=None, *, compute_dtype=None):
     """HiFi-GAN generator on ``p["dec"]``: ``z: [B, F, C]``, ``g: [B, 1,
-    gin]`` or None → ``[B, F * hop]``, float32 throughout."""
+    gin]`` or None → ``[B, F * hop]`` float32.
+
+    ``compute_dtype``: ``torch.bfloat16`` casts each conv's weights (kept
+    as loaded) and the activations to bfloat16 at the call and returns to
+    float32 before ``tanh``, as the reference's ``decode_with`` does, so
+    the waveform and the epilogue after it stay float32.  An int8 conv's
+    weight is rescaled to float32 and then cast, the reference's order."""
     pd = p["dec"]
-    x = m.conv_nct(z.transpose(1, 2), pd["conv_pre"])
+    if compute_dtype is None:
+        def cv(q):
+            return q
+    else:
+        def cv(q):
+            return _Cast(q, compute_dtype)
+
+        z = z.to(compute_dtype)
+        if g is not None:
+            g = g.to(compute_dtype)
+    x = m.conv_nct(z.transpose(1, 2), cv(pd["conv_pre"]))
     if g is not None and "cond" in pd:
-        x = x + m.conv_nct(g.transpose(1, 2), pd["cond"])
+        x = x + m.conv_nct(g.transpose(1, 2), cv(pd["cond"]))
     n_kernels = len(hp.resblock_kernel_sizes)
     for i, (r_up, k_up) in enumerate(zip(hp.upsample_rates,
                                          hp.upsample_kernel_sizes)):
         x = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-        x = m.conv_transpose_nct(x, pd["ups"][i], stride=r_up,
+        x = m.conv_transpose_nct(x, cv(pd["ups"][i]), stride=r_up,
                                  padding=(k_up - r_up) // 2)
         xs = None
         for j in range(n_kernels):
             y = _resblock1(pd["resblocks"][i * n_kernels + j], x,
-                           hp.resblock_dilation_sizes[j])
+                           hp.resblock_dilation_sizes[j], cv)
             xs = y if xs is None else xs + y
         x = xs / n_kernels
     x = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-    x = m.conv_nct(x, pd["conv_post"])
-    return torch.tanh(x)[:, 0]  # [B, samples]
+    x = m.conv_nct(x, cv(pd["conv_post"]))
+    return torch.tanh(x.to(torch.float32))[:, 0]  # [B, samples]
 
 
-def _resblock1(block, x, dilations):
+def _resblock1(block, x, dilations, cv=lambda q: q):
     for c1, c2, d in zip(block["convs1"], block["convs2"], dilations):
         y = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-        y = m.conv_nct(y, c1, dilation=d)
+        y = m.conv_nct(y, cv(c1), dilation=d)
         y = torch.nn.functional.leaky_relu(y, m.LRELU_SLOPE)
-        y = m.conv_nct(y, c2)
+        y = m.conv_nct(y, cv(c2))
         x = x + y
     return x

@@ -12,7 +12,10 @@ its dict.  Layouts:
 - transposed convolution (the decoder's ``ups``) ``[K, C_in, C_out]`` →
   ``ConvTranspose1d``'s ``[C_in, C_out, K]``;
 - embeddings, relative-position tables, LayerNorm ``gamma``/``beta`` and
-  the duration predictor's ``affine`` stay as they are.
+  the duration predictor's ``affine`` stay as they are;
+- an int8 decoder conv (``w_q`` int8, ``w_scale`` float32 ``[1, 1,
+  C_out]``, ``SONATA_DECODE_QUANT=int8``) → :class:`QConv`, both by the
+  same transpose.
 
 :func:`random_tree` builds a tree of the same shapes as the reference's
 ``vits.init_vits`` from a ``torch.Generator`` (random voices for tests,
@@ -53,6 +56,27 @@ class Conv(nn.Module):
                      else nn.Parameter(bias, requires_grad=False))
 
 
+class QConv(nn.Module):
+    """An int8 weight-only convolution: ``w_q`` (int8) and ``w_scale``
+    (float32, one per output channel, broadcast against ``w_q``) in torch
+    layout, and a float32 ``bias``.  :attr:`weight` rescales ``w_q`` to
+    float32 at every read, so the device holds int8 weights and each conv
+    gets its float32 weight right before it runs; activations are not
+    quantized."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_scale", w_scale)
+        self.bias = (None if bias is None
+                     else nn.Parameter(bias, requires_grad=False))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.w_q.to(torch.float32) * self.w_scale
+
+
 class VitsModel(ParamTree):
     """The whole voice: ``enc_p``, ``dp``, ``flow``, ``dec`` and, for a
     multi-speaker voice, ``emb_g``."""
@@ -68,16 +92,20 @@ def _tensor(a) -> torch.Tensor:
 
 def _build(node, path: tuple):
     if isinstance(node, dict):
+        # [K, C_in, C_out] → ConvTranspose1d [C_in, C_out, K] for the
+        # decoder's upsampling stack, Conv1d [C_out, C_in, K] otherwise
+        axes = (1, 2, 0) if "ups" in path else (2, 1, 0)
+        bias = _tensor(node["b"]) if "b" in node else None
         if "w_q" in node:
-            raise FailedToLoadResource(
-                "int8-quantized decoder weights are not supported by the "
-                "PyTorch port yet")
+            if "dec" not in path:
+                raise FailedToLoadResource(
+                    f"int8 weights outside the decoder ({'/'.join(path)})")
+            w_q = np.asarray(node["w_q"], np.int8).transpose(axes)
+            scale = np.asarray(node["w_scale"], np.float32).transpose(axes)
+            return QConv(torch.from_numpy(np.ascontiguousarray(w_q)),
+                         _tensor(scale), bias)
         if "w" in node:
-            w = np.asarray(node["w"], np.float32)
-            # [K, C_in, C_out] → ConvTranspose1d [C_in, C_out, K] for the
-            # decoder's upsampling stack, Conv1d [C_out, C_in, K] otherwise
-            w = w.transpose(1, 2, 0) if "ups" in path else w.transpose(2, 1, 0)
-            bias = _tensor(node["b"]) if "b" in node else None
+            w = np.asarray(node["w"], np.float32).transpose(axes)
             return Conv(_tensor(w), bias)
         tree = ParamTree()
         _fill(tree, node, path)
@@ -110,13 +138,26 @@ def params_from_numpy(tree: dict, hp: VitsHyperParams) -> VitsModel:
     return fill_tree(VitsModel(hp), tree)
 
 
+def build_subtree(tree, path: tuple):
+    """One subtree of a reference parameter tree (e.g. the decoder at
+    ``("dec",)``) → its module, in torch layouts."""
+    return _build(tree, path)
+
+
 def params_to_numpy(module: nn.Module, path: tuple = ()):
     """The inverse of :func:`params_from_numpy`: a parameter module (on
     any device) → the reference's tree, numpy leaves in its layouts."""
-    if isinstance(module, Conv):
-        w = module.weight.detach().cpu().numpy()
-        node = {"w": np.ascontiguousarray(
-            w.transpose(2, 0, 1) if "ups" in path else w.transpose(2, 1, 0))}
+    if isinstance(module, (Conv, QConv)):
+        # the inverse transposes of _build's: [C_in, C_out, K] and
+        # [C_out, C_in, K] back to [K, C_in, C_out]
+        axes = (2, 0, 1) if "ups" in path else (2, 1, 0)
+
+        def back(t):
+            return np.ascontiguousarray(
+                t.detach().cpu().numpy().transpose(axes))
+
+        node = ({"w_q": back(module.w_q), "w_scale": back(module.w_scale)}
+                if isinstance(module, QConv) else {"w": back(module.weight)})
         if module.bias is not None:
             node["b"] = module.bias.detach().cpu().numpy()
         return node

@@ -1,14 +1,61 @@
-"""Bounded-bucket histograms for serving metrics.
+"""Observability: RTF counters, histograms and profiler trace capture.
 
-The histogram half of the JAX package's ``utils/profiling.py``, copied as
-it is (the batch scheduler's queue-wait histogram uses it); its profiler
-capture is not ported.
+Port of ``sonata_tpu/utils/profiling.py``.  The RTF counters, the
+histograms and :func:`timed` are the JAX module's; :func:`trace` and
+:func:`capture_profile` capture a ``torch.profiler`` trace (host activity,
+and the card's kernels when CUDA is available) into a Chrome trace file in
+``log_dir`` (view it in Perfetto or ``chrome://tracing``), where the JAX
+module captured a ``jax.profiler`` device trace.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
+import time
 from dataclasses import dataclass
+from typing import Iterator, Optional
+
+
+@dataclass
+class RtfStats:
+    utterances: int = 0
+    audio_ms: float = 0.0
+    inference_ms: float = 0.0
+
+    @property
+    def rtf(self) -> float:
+        return self.inference_ms / self.audio_ms if self.audio_ms else 0.0
+
+    @property
+    def audio_seconds_per_second(self) -> float:
+        return 1.0 / self.rtf if self.rtf else 0.0
+
+
+class RtfCounter:
+    """Thread-safe aggregate RTF accounting (e.g. one per gRPC server)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._stats = RtfStats()
+
+    def record(self, audio) -> None:
+        """Record one synthesized :class:`~sonata_tpu_torch.audio.Audio`."""
+        with self._lock:
+            self._stats.utterances += 1
+            self._stats.audio_ms += audio.duration_ms()
+            self._stats.inference_ms += audio.inference_ms
+
+    def snapshot(self) -> RtfStats:
+        with self._lock:
+            return RtfStats(self._stats.utterances, self._stats.audio_ms,
+                            self._stats.inference_ms)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stats = RtfStats()
+
 
 #: Default latency buckets (seconds): 5 ms .. 30 s, roughly 2.5x apart.
 #: Spans a TTFB on a warm accelerator (~tens of ms) through a cold-compile
@@ -81,3 +128,76 @@ class Histogram:
             cum.append(running)
         return HistogramSnapshot(buckets=self._bounds, counts=tuple(cum),
                                  total=total, sum=s)
+
+
+#: the file :func:`trace` writes into its ``log_dir``
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the block into
+    ``log_dir/trace.json`` (Chrome trace format): host activity, and the
+    card's kernels and copies when CUDA is available."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+#: the torch profiler cannot nest captures; serialize /debug/profile hits
+_PROFILE_LOCK = threading.Lock()
+
+
+def capture_profile(seconds: float, log_dir: Optional[str] = None) -> str:
+    """Capture a ``torch.profiler`` trace for ``seconds`` and return the
+    log directory (``trace.json`` inside; view with Perfetto).
+
+    What the metrics plane's ``/debug/profile?seconds=`` endpoint runs:
+    the tracing layer answers *where a request's wall time went*; this
+    answers *what the device was doing meanwhile*.  Raises
+    ``RuntimeError`` when a capture is already running (the profiler
+    cannot nest).
+    """
+    import tempfile
+
+    seconds = min(max(float(seconds), 0.1), 60.0)
+    if log_dir is None:
+        log_dir = tempfile.mkdtemp(prefix="sonata_profile_")
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise RuntimeError("a profiler capture is already running")
+    try:
+        with trace(log_dir):
+            time.sleep(seconds)
+    finally:
+        _PROFILE_LOCK.release()
+    return log_dir
+
+
+@contextlib.contextmanager
+def timed(label: str, sink: Optional[list] = None) -> Iterator[None]:
+    """Wall-clock a block; append ``(label, seconds)`` to ``sink`` or log."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        if sink is not None:
+            sink.append((label, dt))
+        else:
+            import logging
+
+            logging.getLogger("sonata.profiling").debug(
+                "%s: %.1f ms", label, dt * 1e3)

@@ -10,6 +10,7 @@ both ways.
 
 import ast
 import importlib.util
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -65,6 +66,12 @@ def test_scan_sees_the_whole_package():
                    "sonata_tpu_torch/synth/output.py",
                    "sonata_tpu_torch/native/build.py",
                    "sonata_tpu_torch/utils/dispatch_policy.py",
+                   "sonata_tpu_torch/serving/replicas.py",
+                   "sonata_tpu_torch/serving/__init__.py",
+                   "sonata_tpu_torch/frontends/grpc_server.py",
+                   "sonata_tpu_torch/frontends/cli.py",
+                   "sonata_tpu_torch/frontends/capi_bridge.py",
+                   "sonata_tpu_torch/pysonata.py",
                    "chip_smoke.py"):
         assert needed in files
     assert _forbidden("jax.numpy") and _forbidden("sonata_tpu.models")
@@ -72,8 +79,12 @@ def test_scan_sees_the_whole_package():
 
 
 def test_importing_the_port_leaves_the_jax_package_unloaded():
+    """Neither the JAX package nor jax enters ``sys.modules`` through an
+    import of the port (modules the interpreter held before it, as a host
+    that imports jax at start-up would, do not count)."""
     code = (
         "import sys\n"
+        "before = set(sys.modules)\n"
         "import sonata_tpu_torch, sonata_tpu_torch.models, "
         "sonata_tpu_torch.synth, sonata_tpu_torch.text, "
         "sonata_tpu_torch.ops, sonata_tpu_torch.models.decode_opts, "
@@ -83,9 +94,14 @@ def test_importing_the_port_leaves_the_jax_package_unloaded():
         "sonata_tpu_torch.synth.batching, sonata_tpu_torch.synth.scheduler, "
         "sonata_tpu_torch.synth.output, sonata_tpu_torch.native, "
         "sonata_tpu_torch.utils.dispatch_policy, "
-        "sonata_tpu_torch.utils.profiling\n"
-        "bad = [m for m in sys.modules if m == 'sonata_tpu' "
-        "or m.startswith('sonata_tpu.')]\n"
+        "sonata_tpu_torch.utils.profiling, "
+        "sonata_tpu_torch.frontends.grpc_server, "
+        "sonata_tpu_torch.frontends.cli, "
+        "sonata_tpu_torch.frontends.capi_bridge, "
+        "sonata_tpu_torch.pysonata, sonata_tpu_torch.serving.replicas\n"
+        "bad = [m for m in set(sys.modules) - before "
+        "if m in ('sonata_tpu', 'jax') "
+        "or m.startswith(('sonata_tpu.', 'jax.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -101,8 +117,16 @@ def test_kernel_sources_ship_with_the_package():
     text = (REPO / "pyproject.toml").read_text(encoding="utf-8")
     assert '"sonata_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh", ' \
         '"data/*.npz"]' in text
-    assert '"sonata_tpu_torch.native" = ["src/*.cpp"]' in text
-    assert (PORT / "native" / "src" / "sonata_dsp.cpp").is_file()
+    assert '"sonata_tpu_torch.native" = ["src/*.cpp", "include/*.h"]' \
+        in text
+    for rel in ("src/sonata_dsp.cpp", "src/sonata_capi.cpp",
+                "include/libsonata_tpu.h"):
+        assert (PORT / "native" / rel).is_file()
+    for script, target in (
+            ("sonata-tpu-torch", "sonata_tpu_torch.frontends.cli:main"),
+            ("sonata-tpu-torch-grpc",
+             "sonata_tpu_torch.frontends.grpc_server:main")):
+        assert f'{script} = "{target}"' in text
 
 
 def _copy_tool():
@@ -122,7 +146,8 @@ def test_scripted_copy_equals_its_original(rel):
     original = (REPO / "sonata_tpu" / rel).read_text(encoding="utf-8")
     copy = (PORT / rel).read_text(encoding="utf-8")
     assert copy == tool.port_text(original)
-    assert "sonata_tpu." not in copy.replace("sonata_tpu_torch.", "")
+    # a dotted name of the JAX package (``libsonata_tpu.h`` is a file)
+    assert not re.search(r"\bsonata_tpu\.", copy)
 
 
 def test_copy_tool_repoints_names_only():

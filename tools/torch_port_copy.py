@@ -30,20 +30,29 @@ REPO = Path(__file__).resolve().parent.parent
 #: each path names the original under ``sonata_tpu/`` and the copy under
 #: ``sonata_tpu_torch/``
 COPIES = tuple(
-    [f"serving/{name}.py" for name in ("admission", "deadlines",
-                                       "degradation", "faults", "scope",
-                                       "sketches", "tracing")]
+    [f"serving/{name}.py" for name in ("__init__", "admission", "deadlines",
+                                       "degradation", "drain", "faults",
+                                       "health", "ledger", "logs", "mesh",
+                                       "metrics", "placement", "scope",
+                                       "sketches", "synthcache", "tenancy",
+                                       "tracing", "warmup")]
     + ["synth/batching.py", "synth/scheduler.py",
-       "native/src/sonata_dsp.cpp"])
+       "frontends/__init__.py", "frontends/grpc_messages.py",
+       "native/src/sonata_dsp.cpp", "native/src/sonata_capi.cpp",
+       "native/include/libsonata_tpu.h"])
 
 #: (pattern, replacement), applied in order after the re-pointing
 _SCRUBS = (
     (r"PR-\d+ gave the serving stack counters and PR-\d+ gave it",
      "The serving stack had counters and"),
+    (r"\bPR \d+'s router", "The router"),
+    (r"\bPR-\d+'s tracing", "Tracing"),
+    (r"the PR-\d+/\d+ ", "the "),
     (r"the PR-\d+ ", "the "),
     (r"\bPR-\d+ ", ""),
     (r" \(ISSUE \d+\)", ""),
     (r", ISSUE \d+\)", ")"),
+    (r" \(ISSUE \d+,\n", " (\n"),
 )
 
 
