@@ -110,6 +110,15 @@ exits non-zero; nothing is caught):
               speech args from fresh threads run on the voice's warmed batch
               thread; no batch shape first met after the warm-up, cold
               compiles 0.
+13c. router — inside phase 13, before its drain: the port's ``sonata-mesh``
+              router (``frontends.mesh_server.create_mesh_server``, fleet
+              cache on) on loopback in front of that server: the voice
+              loaded through it, one ``SynthesizeUtterance`` and one
+              ``SynthesizeUtteranceRealtime`` through the router, each
+              identical to the same call made to the server directly; the
+              ``x-sonata-node-id`` trailer must name the server, the
+              router's ``/metrics`` must count ``sonata_mesh_routed_total``,
+              and the router's fleet-cache key must equal the server's.
 14. frontends — the saved voice through the CLI (``python3 -m
               sonata_tpu_torch.frontends.cli`` in a subprocess), the C ABI
               (``libsonata_tpu`` built with ``g++`` and loaded with
@@ -117,6 +126,22 @@ exits non-zero; nothing is caught):
               identical to the library's (``synthesize_to_file``) on the
               card, and the C ABI's realtime events identical to the
               library's stream of 72-frame chunks.
+14b. mesh   — the device mesh at medium width, on meshes whose device
+              lists repeat the one card (``make_mesh(devices=[cuda:0] *
+              n)``): (data 2), (data 1, seq 2) and (data 2, seq 2, model
+              2).  Each runs the 3-sentence file, one stream and a long
+              utterance (over 3000 samples, split over the seq shards) on a
+              fresh voice, held against the unsharded voice on the card
+              (fresh, same weights and noise, same call order) within 1e-3
+              of the peak, lengths and chunk boundaries identical.  The
+              gate and the epilogue are recorded at the per-shard shapes
+              they launch at (the kernel checks take them), and each launch
+              counter must equal its recorded calls.  The bf16
+              ``decode_sp`` against the unsharded bf16 decode (SNR above
+              the bf16 bar); the server's ``main()`` with ``--mesh-devices
+              1`` serves a sentence on a voice with that mesh;
+              ``--mesh-devices 2`` on a one-card host is refused.  Cross-card transport is not measured: the
+              mesh repeats one card.
 15. kernels — each kernel against its plain PyTorch version on the card, at
               the shapes every path above gave it and at fixed check shapes that reach
               the kernels' edges (ragged and misaligned rows, a strided
@@ -219,6 +244,14 @@ SCHED_TEXTS = CONCURRENT_TEXTS + (
 STAGE_WAIT_MS = 5000.0
 #: GPU against CPU port, or against another batch shape: of the peak
 PARITY_TOL = 1e-3
+#: phase 14b's meshes over the one card: (name, entries, seq, model)
+MESH_LAYOUTS = (("data2", 2, 1, 1), ("data1_seq2", 2, 2, 1),
+                ("data2_seq2_model2", 8, 2, 2))
+MESH_LONG_TEXT = ("This long utterance runs across both halves of the "
+                  "sequence axis, so that its latent frames and its "
+                  "waveform are split between the shards of the mesh and "
+                  "joined again at the end, where the listener hears one "
+                  "sentence.")
 PROSODY = dict(rate=30, volume=80, pitch=60, appended_silence_ms=200)
 #: the JAX package's bars for a reduced-precision decoder against float32:
 #: SNR for both arms, the log-spectral distance for the int8 arm
@@ -758,9 +791,10 @@ class Ctx:
     the kernels' launch counting, each path's counts, the WN layers per
     acoustics call, and phase 2's file."""
 
-    def __init__(self, torch, gpu, counting, paths, n_wn, main_wav):
+    def __init__(self, torch, gpu, counting, paths, n_wn, main_wav, shapes):
         self.torch, self.gpu, self.counting = torch, gpu, counting
         self.paths, self.n_wn, self.main_wav = paths, n_wn, main_wav
+        self.shapes = shapes
 
 
 def medium_voice(torch, **kwargs):
@@ -1082,6 +1116,7 @@ def phase_serve(ctx, cfg: Path) -> None:
                 t0 = time.perf_counter()
                 v.pool.speak(sentence, timeout=120)
                 worker_ms.append((time.perf_counter() - t0) * 1e3)
+            phase_router(ctx, cfg, port, rt, service, vid)
             drained = service.drain(reason="chip_smoke")
             phases = [p for p, _ms in rt.drain.phases]
             stragglers = rt.admission.in_flight
@@ -1135,6 +1170,313 @@ def phase_serve(ctx, cfg: Path) -> None:
             ("serve vs CPU port", par, same))
     require(drained and phases == list(DRAIN_PHASES) and stragglers == 0,
             ("drain", drained, phases, stragglers))
+
+
+def phase_router(ctx, cfg: Path, port: int, rt, service, vid: str) -> None:
+    """Phase 13c: the port's router in front of phase 13's server."""
+    import grpc
+    import numpy as np
+
+    from sonata_tpu_torch.frontends import grpc_messages as pb
+    from sonata_tpu_torch.frontends.mesh_server import create_mesh_server
+    from sonata_tpu_torch.serving import parse_prometheus_text
+
+    with env_set(SONATA_FLEETCACHE="1"):
+        router, rport = create_mesh_server(
+            0, backends=f"127.0.0.1:{port}/{rt.http_port}", metrics_port=0,
+            request_timeout_s=120.0)
+    router.start()
+    chans = {"router": grpc.insecure_channel(f"127.0.0.1:{rport}"),
+             "direct": grpc.insecure_channel(f"127.0.0.1:{port}")}
+    out, wall, trailers = {}, {}, {}
+    try:
+        routed_vid = chans["router"].unary_unary(
+            "/sonata_grpc.sonata_grpc/LoadVoice",
+            request_serializer=lambda m: m.encode(),
+            response_deserializer=pb.VoiceInfo.decode)(
+                pb.VoicePath(config_path=str(cfg))).voice_id
+        calls = (("SynthesizeUtterance", pb.SynthesisResult,
+                  SERVE_UTTERANCES[0]),
+                 ("SynthesizeUtteranceRealtime", pb.WaveSamples,
+                  SERVE_TEXTS[0]))
+        with ctx.counting() as rc:
+            for via in ("router", "direct"):
+                for rpc, resp, text in calls:
+                    t0 = time.perf_counter()
+                    call = chans[via].unary_stream(
+                        f"/sonata_grpc.sonata_grpc/{rpc}",
+                        request_serializer=lambda m: m.encode(),
+                        response_deserializer=resp.decode)(
+                            pb.Utterance(voice_id=vid, text=text),
+                            timeout=120.0)
+                    out[via, rpc] = [np.frombuffer(m.wav_samples, "<i2")
+                                     for m in call]
+                    wall[f"{via}_{rpc}_s"] = time.perf_counter() - t0
+                    trailers[via, rpc] = dict(call.trailing_metadata() or ())
+        ctx.paths["router"] = rc
+        code, body = http_get(
+            f"http://127.0.0.1:{router.sonata_runtime.http_port}/metrics")
+        routed = sum(v for _l, v in parse_prometheus_text(body).get(
+            "sonata_mesh_routed_total", []))
+        request = pb.Utterance.decode(pb.Utterance(
+            voice_id=vid, text=SERVE_UTTERANCES[0]).encode())
+        keys = {kind: (router.sonata_service.fleetcache.routing_key(
+                           kind, request),
+                       service._cache_key_for(service._voices[vid], request,
+                                              kind))
+                for kind in ("utterance", "realtime")}
+    finally:
+        for ch in chans.values():
+            ch.close()
+        router.stop(grace=None)
+        router.sonata_service.shutdown()
+    rc.check(ctx.n_wn, "router")
+    identical = {rpc: len(out["router", rpc]) == len(out["direct", rpc]) > 0
+                 and all(np.array_equal(a, b) for a, b in zip(
+                     out["router", rpc], out["direct", rpc]))
+                 for rpc, _r, _t in calls}
+    node = {rpc: trailers["router", rpc].get("x-sonata-node-id")
+            for rpc, _r, _t in calls}
+    emit({"phase": "router", "card": ctx.gpu, "transport": "grpc loopback",
+          "backend": rt.node_id, "voice_id_routed": routed_vid,
+          "identical_to_direct": identical, "node_id_trailer": node,
+          "metrics_code": code, "sonata_mesh_routed_total": routed,
+          "fleetcache_keys_equal": {k: a == b for k, (a, b) in keys.items()},
+          **wall, **rc.summary()})
+    require(routed_vid == vid, ("router LoadVoice", routed_vid, vid))
+    require(all(identical.values()), ("router vs direct", identical))
+    require(all(n == rt.node_id for n in node.values()), ("trailer", node))
+    require(code == 200 and routed >= 2, ("router metrics", code, routed))
+    require(all(a == b and a is not None for a, b in keys.values()),
+            ("fleet-cache key", keys))
+
+
+class KernelRecorder:
+    """The hand kernels' launches and shapes on a sharded path, for
+    ``with``: the gate wrapped where ``wn_nct`` calls it and the epilogue
+    where the voice calls it, each call's shape recorded (``[B, T, 2H]``
+    with whether ``g`` came, and ``[B, S]``), on whatever thread or lane
+    runs it.  The launch counts are set to 0 on entry and read on exit; the
+    recorded shapes join ``shapes``, the kernel checks' list."""
+
+    def __init__(self, torch, modules, gate, dop, shapes: dict):
+        self._mods = torch, modules, gate, dop
+        self.shapes = shapes
+
+    def __enter__(self):
+        torch, modules, gate, dop = self._mods
+        self.gate_shapes, self.epi_shapes = [], []
+        orig_gate, orig_epi = modules.gate_op, dop.fused_epilogue
+        self._saved = orig_gate, orig_epi
+
+        def gate_rec(x, g=None):
+            self.gate_shapes.append((tuple(x.shape), g is not None))
+            return orig_gate(x, g)
+
+        def epi_rec(wav, lo, hi, *a, **k):
+            self.epi_shapes.append(tuple(wav.shape))
+            return orig_epi(wav, lo, hi, *a, **k)
+
+        torch.cuda.synchronize()
+        # the epilogue's wrapper counts through its module's name, which
+        # now names the recorder: its launches land on the recorder
+        gate.fused_gate.launches = epi_rec.launches = 0
+        modules.gate_op, dop.fused_epilogue = gate_rec, epi_rec
+        return self
+
+    def __exit__(self, *exc):
+        torch, modules, gate, dop = self._mods
+        torch.cuda.synchronize()
+        self.launches = {"fused_gate": gate.fused_gate.launches,
+                         "fused_epilogue": dop.fused_epilogue.launches}
+        modules.gate_op, dop.fused_epilogue = self._saved
+        self.shapes["gate"].extend(sorted(set(self.gate_shapes)))
+        self.shapes["epilogue"].extend(sorted(set(self.epi_shapes)))
+        return False
+
+    def summary(self) -> dict:
+        return {"launches": self.launches,
+                "gate_shapes": {f"{b}x{t}x{h}" + ("+g" if g else ""): c
+                                for ((b, t, h), g), c in sorted(
+                                    Counter(self.gate_shapes).items())},
+                "epilogue_shapes": {f"{b}x{n}": c for (b, n), c in sorted(
+                    Counter(self.epi_shapes).items())}}
+
+
+def mesh_run(torch, voice) -> dict:
+    """Phase 14b's traffic on a fresh voice, in one order: the file, one
+    stream, the long utterance."""
+    from sonata_tpu_torch.audio import read_wave_file
+    from sonata_tpu_torch.synth import SpeechSynthesizer
+
+    synth = SpeechSynthesizer(voice)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synth.synthesize_to_file(Path(tmp) / "mesh.wav", TEXT)
+        torch.cuda.synchronize()
+        out["file_s"] = time.perf_counter() - t0
+        out["file"] = read_wave_file(Path(tmp) / "mesh.wav")[0]
+    t0 = time.perf_counter()
+    out["chunks"] = [c.samples.data for c in synth.synthesize_streamed(
+        STREAM_TEXT, chunk_size=45, chunk_padding=3)]
+    out["stream_s"] = time.perf_counter() - t0
+    sentence = list(voice.phonemize_text(MESH_LONG_TEXT))[0]
+    t0 = time.perf_counter()
+    out["long"] = voice.speak_batch([sentence])[0].samples.data
+    out["long_s"] = time.perf_counter() - t0
+    synth.close()
+    return out
+
+
+def phase_mesh(ctx, cfg: Path) -> None:
+    """Phase 14b: the device mesh on the one card."""
+    import numpy as np
+
+    from sonata_tpu_torch.frontends import grpc_messages as pb
+    from sonata_tpu_torch.frontends import grpc_server
+    from sonata_tpu_torch.models import PiperVoice, decode_opts as dop
+    from sonata_tpu_torch.models import modules, vits
+    from sonata_tpu_torch.models.seq_parallel import decode_sp
+    from sonata_tpu_torch.ops import gate
+    from sonata_tpu_torch.parallel import make_mesh
+    from sonata_tpu_torch.utils.buckets import FRAME_BUCKETS
+
+    torch = ctx.torch
+    base = medium_voice(torch)  # its weights, shared by every voice below
+    hp = base.hp
+
+    def fresh(mesh=None):
+        return PiperVoice(base.config, base.model, seed=0, mesh=mesh)
+
+    want = mesh_run(torch, fresh())
+    emit({"phase": "mesh", "card": ctx.gpu, "layout": "unsharded",
+          **{k: want[k] for k in ("file_s", "stream_s", "long_s")},
+          "long_samples": len(want["long"])})
+    card0 = base.device  # the one card, repeated in every mesh
+    for name, n, seq, model in MESH_LAYOUTS:
+        mesh = make_mesh(devices=[card0] * n, seq_parallel=seq,
+                         model_parallel=model)
+        voice = fresh(mesh)
+        with KernelRecorder(torch, modules, gate, dop, ctx.shapes) as rec:
+            got = mesh_run(torch, voice)
+        ctx.paths[f"mesh_{name}"] = rec
+        file_par = audio_parity(got["file"].astype(np.float32),
+                                want["file"].astype(np.float32))
+        stream_par = audio_parity(np.concatenate(got["chunks"]),
+                                  np.concatenate(want["chunks"]))
+        stream_par["boundaries_identical"] = (
+            [len(c) for c in got["chunks"]]
+            == [len(c) for c in want["chunks"]])
+        long_par = audio_parity(got["long"], want["long"])
+        # frame counts the flow ran on that are a bucket split over seq
+        sharded_t = sorted({t for (_b, t, _h), _g in rec.gate_shapes
+                            if t * seq in FRAME_BUCKETS}
+                           if seq > 1 and model == 1 else ())
+        emit({"phase": "mesh", "card": ctx.gpu, "layout": name,
+              "mesh": mesh.shape, "devices": [str(d) for d in
+                                              mesh.devices.flat],
+              "file": file_par, "stream": stream_par, "long": long_par,
+              "file_s": got["file_s"], "stream_s": got["stream_s"],
+              "long_s": got["long_s"], "long_samples": len(got["long"]),
+              "seq_shard_frames": sharded_t,
+              "tolerance_rel": PARITY_TOL, **rec.summary()})
+        require(rec.launches["fused_gate"] == len(rec.gate_shapes) > 0
+                and rec.launches["fused_epilogue"]
+                == len(rec.epi_shapes) > 0, (name, rec.summary()))
+        require(all(p["max_rel_diff"] <= PARITY_TOL
+                    for p in (file_par, stream_par, long_par))
+                and stream_par["boundaries_identical"]
+                and len(got["long"]) > 3000, (name, file_par, stream_par,
+                                              long_par))
+        require(seq == 1 or model > 1 or sharded_t,
+                (name, "the flow never ran on frame shards"))
+        voice.close()
+    # the bf16 decode_sp against the unsharded bf16 decode
+    gen = torch.Generator(device=card0).manual_seed(5)
+    z = torch.randn((2, 256, hp.inter_channels), generator=gen,
+                    device=card0)
+    with torch.inference_mode():
+        sharded = decode_sp(base.model, hp, z,
+                            make_mesh(devices=[card0] * 2, seq_parallel=2),
+                            compute_dtype=torch.bfloat16)
+        whole = vits.decode_with(base.model, hp, z,
+                                 compute_dtype=torch.bfloat16)
+    sharded, whole = sharded.cpu().numpy(), whole.cpu().numpy()
+    bf16 = {"shape": list(sharded.shape),
+            "max_abs_diff": float(np.abs(sharded - whole).max()),
+            "snr_db": snr_db(whole, sharded), "snr_db_min": SNR_DB_MIN}
+    # the server's main() with --mesh-devices 1 serves a sentence (its
+    # blocking wait is replaced by the requests), and a 2 is refused
+    import grpc
+    import signal
+
+    real_create, box = grpc_server.create_server, {}
+
+    def create_and_serve(*a, **k):
+        server, port = real_create(*a, **k)
+
+        def requests():
+            ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+            try:
+                vid = ch.unary_unary(
+                    "/sonata_grpc.sonata_grpc/LoadVoice",
+                    request_serializer=lambda m: m.encode(),
+                    response_deserializer=pb.VoiceInfo.decode)(
+                        pb.VoicePath(config_path=str(cfg))).voice_id
+                box["served"] = list(ch.unary_stream(
+                    "/sonata_grpc.sonata_grpc/SynthesizeUtterance",
+                    request_serializer=lambda m: m.encode(),
+                    response_deserializer=pb.SynthesisResult.decode)(
+                        pb.Utterance(voice_id=vid,
+                                     text=SERVE_UTTERANCES[0]),
+                        timeout=120.0))
+                box["mesh"] = server.sonata_service._voices[
+                    vid].voice.mesh.shape
+            finally:
+                ch.close()
+            raise KeyboardInterrupt  # main() then stops the server
+
+        server.wait_for_termination = requests
+        return server, port
+
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    grpc_server.create_server = create_and_serve
+    try:
+        grpc_server.main(["--port", "0", "--mesh-devices", "1",
+                          "--request-timeout-s", "120"])
+    finally:
+        grpc_server.create_server = real_create
+        for sig, handler in handlers.items():
+            signal.signal(sig, handler)
+    served, served_mesh = box.get("served"), box.get("mesh")
+    too_many = torch.cuda.device_count() + 1
+
+    def accepted(*_a, **_k):  # reached only when the flag was accepted
+        raise RuntimeError("--mesh-devices was accepted")
+
+    saved, grpc_server.create_server = grpc_server.create_server, accepted
+    try:
+        grpc_server.main(["--mesh-devices", str(too_many)])
+        refused = False
+    except SystemExit as e:
+        refused = e.code not in (0, None)
+    except RuntimeError:
+        refused = False
+    finally:
+        grpc_server.create_server = saved
+    emit({"phase": "mesh_serve", "card": ctx.gpu, "bf16_decode_sp": bf16,
+          "served_mesh": served_mesh,
+          "served_samples": sum(len(m.wav_samples) // 2
+                                for m in served or ()),
+          f"mesh_devices_{too_many}_refused": refused,
+          "cross_card_transport": "not measured: the mesh repeats one card"})
+    require(bf16["snr_db"] > SNR_DB_MIN, ("bf16 decode_sp", bf16))
+    require(served and served_mesh == {"data": 1, "seq": 1, "model": 1},
+            ("mesh server", served_mesh))
+    require(refused, f"--mesh-devices {too_many} was not refused")
+    base.close()
 
 
 def phase_serve_plain(ctx, cfg: Path) -> None:
@@ -1772,7 +2114,7 @@ def main() -> int:
     require(sum(arms.values()) > 0, "no prosody processing ran")
 
     # -- 11-14. precision arms, warm-up, the server and the frontends -----------
-    ctx = Ctx(torch, gpu, counting, paths, n_wn, samples)
+    ctx = Ctx(torch, gpu, counting, paths, n_wn, samples, shapes)
     phase_precision(ctx)
     phase_warmup(ctx)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1780,8 +2122,18 @@ def main() -> int:
         phase_serve(ctx, cfg)
         phase_serve_plain(ctx, cfg)
         phase_frontends(ctx, cfg)
+        phase_mesh(ctx, cfg)
 
     # -- 15. kernels against their plain versions --------------------------------
+    def mesh_shapes(kernel: str) -> dict:
+        """The per-shard shapes each mesh path launched ``kernel`` at (all
+        of them are among the checked shapes)."""
+        return {name: sorted({str(list(s[0]) + (["g"] if s[1] else []))
+                              if kernel == "gate" else str(list(s))
+                              for s in (c.gate_shapes if kernel == "gate"
+                                        else c.epi_shapes)})
+                for name, c in paths.items() if name.startswith("mesh_")}
+
     tiny = torch.empty(1, device="cuda")
     floor_ms = cold_device_ms(torch, [tiny.zero_] * COLD_CALLS)
     emit({"phase": "floor", "card": gpu, "floor_device_ms": floor_ms,
@@ -1831,7 +2183,8 @@ def main() -> int:
                  "plain_call_ms": call_ms(torch, plains[0]),
                  "plain_profiler_ms": profiler_ms(torch, plains),
                  "timed_shape": list(shape),
-                 "checked_shapes": len(gate_cases)})
+                 "checked_shapes": len(gate_cases),
+                 "mesh_shapes": mesh_shapes("gate")})
 
     # epilogue: the main path's window shapes, a [4, 256*256] check with
     # mixed ranges (full row, interior, shorter than 2*42, empty), rows off
@@ -1888,6 +2241,7 @@ def main() -> int:
                  "plain_call_ms": call_ms(torch, plains[0]),
                  "plain_profiler_ms": profiler_ms(torch, plains),
                  "timed_shape": [b, s],
+                 "mesh_shapes": mesh_shapes("epilogue"),
                  "samples_differing": epi_diff,
                  "peak_rel_err": epi_peak})
 

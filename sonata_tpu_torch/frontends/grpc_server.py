@@ -19,8 +19,10 @@ drain and warm-up, with these differences:
 - with a replica pool, the warm-up also calibrates and warms the loaded
   voice itself: realtime streams ride its stream engines, not a
   replica's;
-- no device mesh: ``--mesh-devices`` is refused until the multi-GPU slice
-  of the port.
+- ``--mesh-devices N`` builds the mesh over the first N visible CUDA
+  devices (``parallel.make_mesh``) and attaches it to every loaded voice;
+  a host with fewer cards refuses it, and ``--device`` does not combine
+  with it (a mesh voice lives on the mesh's first device).
 
 Analogue of the reference's ``sonata-grpc`` frontend
 (``crates/frontends/grpc/src/main.rs``):
@@ -232,12 +234,13 @@ class SonataGrpcService:
 
     def __init__(self, seed: int = 0, continuous_batching: bool = False,
                  runtime: Optional[ServingRuntime] = None,
-                 replicas: int = 0, device=None):
+                 replicas: int = 0, device=None, mesh=None):
         self._voices: dict[str, _Voice] = {}
         self._lock = threading.RLock()
         self._loading: dict[str, threading.Lock] = {}
         #: where voices load: None is the GPU, "cpu" the host
         self._device = device
+        self._mesh = mesh
         self._seed = seed
         self._continuous_batching = continuous_batching
         #: 0 = no pool; >0 = that many replicas; <0 = one per local
@@ -249,6 +252,14 @@ class SonataGrpcService:
 
             if env_replica_count() > 0:
                 self._replicas = -1  # env-enabled: env decides the count
+        # checked AFTER env resolution: SONATA_REPLICAS must not smuggle
+        # a pool past the exclusion either
+        if self._replicas and mesh is not None:
+            raise OperationError(
+                "--replicas (or SONATA_REPLICAS) and --mesh-devices are "
+                "mutually exclusive: a mesh spans the devices as one "
+                "dispatch, a replica pool gives each device its own "
+                "failure domain")
         self.runtime = runtime if runtime is not None else ServingRuntime()
         self._draining = threading.Event()
 
@@ -353,7 +364,8 @@ class SonataGrpcService:
                     try:
                         voice = from_config_path(request.config_path,
                                                  seed=self._seed,
-                                                 device=self._device)
+                                                 device=self._device,
+                                                 mesh=self._mesh)
                     except SonataError as e:
                         context.abort(_status_for(e), str(e))
                     try:
@@ -1428,11 +1440,12 @@ def create_server(port: Optional[int] = None, *, seed: int = 0,
                   max_queue_depth: Optional[int] = None,
                   request_timeout_s: Optional[float] = None,
                   metrics_port: Optional[int] = None,
-                  replicas: int = 0, device=None
+                  replicas: int = 0, device=None, mesh=None
                   ) -> tuple[grpc.Server, int]:
     """Build the server (not started) and its serving runtime; returns it
     with the bound port.  ``device``: where voices load (None: the GPU,
-    raising without one; ``"cpu"``: the host)."""
+    raising without one; ``"cpu"``: the host).  ``mesh``: a
+    :class:`~..parallel.mesh.Mesh` every loaded voice is placed on."""
     from concurrent.futures import ThreadPoolExecutor
 
     port = port if port is not None else int(
@@ -1444,7 +1457,7 @@ def create_server(port: Optional[int] = None, *, seed: int = 0,
     service = SonataGrpcService(seed=seed,
                                 continuous_batching=continuous_batching,
                                 runtime=runtime, replicas=replicas,
-                                device=device)
+                                device=device, mesh=mesh)
     server = grpc.server(ThreadPoolExecutor(max_workers=max_workers,
                                             thread_name_prefix="sonata_grpc"))
     server.add_generic_rpc_handlers((_Handler(service),))
@@ -1487,13 +1500,23 @@ def main(argv=None) -> int:
                          "and per-replica circuit breaking (implies "
                          "continuous batching per replica).  N>0 = that "
                          "many replicas, -1 = one per local device, 0 = "
-                         "off unless $SONATA_REPLICAS is set)")
+                         "off unless $SONATA_REPLICAS is set.  Mutually "
+                         "exclusive with --mesh-devices")
     ap.add_argument("--device", default=None,
                     help="where voices load: cuda, cuda:N or cpu "
                          "(default: the GPU)")
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="not available yet: a device mesh comes with the "
-                         "port's multi-GPU slice")
+                    help="attach a mesh over the first N visible CUDA "
+                         "devices to every loaded voice (0 = one device)")
+    ap.add_argument("--seq-parallel", type=int, default=1,
+                    help="of the mesh devices, how many form the sequence"
+                         "-parallel axis (ring attention + frame-domain "
+                         "sharding); must divide --mesh-devices")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="of the mesh devices, how many form the tensor"
+                         "-parallel axis (HiFi-GAN decoder channels split "
+                         "across devices); seq-parallel * model-parallel "
+                         "must divide --mesh-devices")
     ap.add_argument("--prewarm", action="store_true",
                     help="warm each preloaded voice's common shapes "
                          "(batch buckets, neighbor frame buckets, "
@@ -1530,11 +1553,25 @@ def main(argv=None) -> int:
                           env_level_var="SONATA_GRPC")
     faults.warn_if_armed(log)
 
+    mesh = None
     if args.mesh_devices:
-        ap.error("--mesh-devices is not available in the PyTorch port "
-                 "yet: a device mesh comes with its multi-GPU slice")
+        from ..parallel import make_mesh
 
-    server, port = create_server(args.port, host=args.host,
+        if args.device is not None:
+            ap.error("--device and --mesh-devices are mutually exclusive "
+                     "(a mesh voice lives on the mesh's first device)")
+        try:
+            mesh = make_mesh(args.mesh_devices,
+                             seq_parallel=args.seq_parallel,
+                             model_parallel=args.model_parallel)
+        except ValueError as e:
+            ap.error(f"--mesh-devices: {e}")
+    elif args.seq_parallel > 1 or args.model_parallel > 1:
+        ap.error("--seq-parallel/--model-parallel require --mesh-devices")
+    if args.replicas and args.mesh_devices:
+        ap.error("--replicas and --mesh-devices are mutually exclusive")
+
+    server, port = create_server(args.port, host=args.host, mesh=mesh,
                                  device=args.device,
                                  continuous_batching=args.continuous_batching,
                                  request_timeout_s=args.request_timeout_s,

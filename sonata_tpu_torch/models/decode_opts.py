@@ -35,6 +35,7 @@ epilogue's input stays float32 under every arm.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -189,12 +190,14 @@ def fused_epilogue(wav: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         peak.data_ptr(), b, s, int(fade), cluster, lv, wav.device.index,
         stream_of(wav))
     check(rc, "fused_epilogue")
-    fused_epilogue.launches += 1
+    with _launch_lock:  # the mesh's lanes launch from several threads
+        fused_epilogue.launches += 1
     return q, peak
 
 
 #: kernel launches since the last reset (the CPU path never counts)
 fused_epilogue.launches = 0
+_launch_lock = threading.Lock()
 
 
 def dequantize_chunk(q, peak) -> np.ndarray:

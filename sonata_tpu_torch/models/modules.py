@@ -153,25 +153,91 @@ def transformer(x, mask, p, *, n_heads: int, window: int):
     return x * mask
 
 
+def transformer_seq_parallel(x, mask, p, *, n_heads: int, window: int,
+                             mesh):
+    """The same post-norm encoder stack, over the mesh's ``seq`` axis.
+
+    Each data group's rows are cut along time into one shard per seq
+    position, and the positions run the stack in lockstep
+    (:meth:`~sonata_tpu_torch.parallel.mesh.Mesh.spmd`): attention is a
+    ring (:func:`~sonata_tpu_torch.parallel.ring.ring_rel_attention_sharded`,
+    exact, the windowed relative embeddings included, which couple only
+    ring-adjacent blocks since |s−t| ≤ window), and the FFN's kernel-3
+    convs take their neighbours' boundary columns by a halo exchange.
+    Every other op is per position and stays local.  The numerics match
+    :func:`transformer` (the same math, a blockwise softmax).
+
+    ``x: [B, T, C]`` with ``T`` divisible by the seq-axis size."""
+    from ..parallel.mesh import SEQ_AXIS, map_rows
+    from ..parallel.ring import (
+        halo_exchange,
+        ring_rel_attention_sharded,
+        split_time,
+    )
+
+    def attn_local(x_loc, mask_loc, lp):
+        b, t, c = x_loc.shape
+        head = c // n_heads
+
+        def split(u):  # [B, T, C] → [B, H, T, head]
+            return u.reshape(b, t, n_heads, head).transpose(1, 2)
+
+        out = ring_rel_attention_sharded(
+            split(conv1d(x_loc, lp["q"])), split(conv1d(x_loc, lp["k"])),
+            split(conv1d(x_loc, lp["v"])), mask_loc[..., 0],
+            lp["emb_rel_k"][0], lp["emb_rel_v"][0], window=window)
+        out = out.transpose(1, 2).reshape(b, t, c)
+        return conv1d(out, lp["o"]) * mask_loc
+
+    def conv_halo(x_loc, cp):  # [B, T, C], SAME padding across shards
+        k = cp.weight.shape[-1]
+        ext = halo_exchange(x_loc.transpose(1, 2), k // 2, k - 1 - k // 2)
+        return F.conv1d(ext, cp.weight, cp.bias).transpose(1, 2)
+
+    def inner(x_loc, mask_loc, params):
+        x_loc = x_loc * mask_loc
+        for layer in params["layers"]:
+            y = attn_local(x_loc, mask_loc, layer["attn"])
+            x_loc = layer_norm(x_loc + y, layer["ln1"])
+            y = conv_halo(x_loc * mask_loc, layer["ffn"]["c1"])
+            y = torch.relu(y)
+            y = conv_halo(y * mask_loc, layer["ffn"]["c2"]) * mask_loc
+            x_loc = layer_norm(x_loc + y, layer["ln2"])
+        return x_loc * mask_loc
+
+    def group(sub, x, mask):
+        devs = sub.axis_devices(SEQ_AXIS)
+        args = [(xs, ms, sub.put(p, d)) for xs, ms, d in zip(
+            split_time(x, devs, 1), split_time(mask, devs, 1), devs)]
+        outs = sub.spmd(SEQ_AXIS, inner, args)
+        return torch.cat([o.to(x.device) for o in outs], dim=1)
+
+    return map_rows(mesh, group, x, mask)
+
+
 # ---------------------------------------------------------------------------
 # WaveNet block (used by the coupling flow)
 # ---------------------------------------------------------------------------
 
-def wn_nct(x, mask, p, *, dilation_rate: int, n_layers: int, g=None):
+def wn_nct(x, mask, p, *, dilation_rate: int, n_layers: int, g=None,
+           conv=None):
     """:func:`wn` in ``[B, C, T]``: ``x: [B, H, T]``, ``mask: [B, 1, T]``,
-    ``g: [B, gin, 1]`` or None.
+    ``g: [B, gin, 1]`` or None.  ``conv`` replaces :func:`conv_nct` for the
+    dilated convolutions (the sequence-sharded flow passes a
+    halo-exchange one).
 
     Each layer's pre-activation comes out of its convolution as a
     contiguous ``[B, 2H, T]``; the gate kernel reads it in place through
     its ``[B, T, 2H]`` view and writes a contiguous ``[B, H, T]``, so no
     layer pays a transpose."""
+    conv = conv or conv_nct
     hidden = x.shape[1]
     output = torch.zeros_like(x)
     g_all = None
     if g is not None and "cond" in p:
         g_all = conv_nct(g, p["cond"])  # [B, 2*H*n_layers, 1]
     for i in range(n_layers):
-        x_in = conv_nct(x, p["in"][i], dilation=dilation_rate ** i)
+        x_in = conv(x, p["in"][i], dilation=dilation_rate ** i)
         g_l = None
         if g_all is not None:
             g_l = g_all[:, i * 2 * hidden:(i + 1) * 2 * hidden].transpose(1, 2)
@@ -186,7 +252,7 @@ def wn_nct(x, mask, p, *, dilation_rate: int, n_layers: int, g=None):
 
 
 def wn(x, mask, p, *, kernel: int, dilation_rate: int, n_layers: int,
-       g=None):
+       g=None, conv=None):
     """Non-causal WaveNet: dilated convs, gated tanh units, residual+skip.
 
     ``x: [B, T, H]``; ``g: [B, 1, gin]`` speaker conditioning or None.  The
@@ -196,7 +262,7 @@ def wn(x, mask, p, *, kernel: int, dilation_rate: int, n_layers: int,
     del kernel
     out = wn_nct(x.transpose(1, 2), mask.transpose(1, 2), p,
                  dilation_rate=dilation_rate, n_layers=n_layers,
-                 g=None if g is None else g.transpose(1, 2))
+                 g=None if g is None else g.transpose(1, 2), conv=conv)
     return out.transpose(1, 2)
 
 

@@ -43,6 +43,15 @@ per-row generator sampler :func:`vits.per_row_normal`; a row's noise
 depends on its row index, so a stream's slot in a coalesced group changes
 its draws unless the noise scales are zero.
 
+**A device mesh** (``mesh=``, :mod:`..parallel`): the batch rounds up to a
+multiple of the mesh's data axis (:meth:`_pad_batch`; the warm-up lattice
+enumerates the rounded shapes), and every stage of both paths — encode,
+acoustics, the batch decode and quantize, the window decodes with their
+epilogue — splits its rows over the data groups, each group running the
+sequence-parallel or tensor-parallel stages of :mod:`.vits` on its
+devices.  The voice's own tensors stay on the mesh's first device; int8
+weights and a replica pool are refused beside a mesh, as in the reference.
+
 Weights load from every format the JAX package reads
 (:meth:`PiperVoice.from_config_path`), and an ``ar*`` voice diacritizes
 its text before G2P (:mod:`..text.tashkeel`, on the voice's device).
@@ -72,7 +81,6 @@ iteration loop annotate their dispatches ``compile="cold"`` or
 
 from __future__ import annotations
 
-import contextlib
 import contextvars
 import logging
 import os
@@ -95,6 +103,7 @@ from ..core import (
     Phonemes,
 )
 from ..device import resolve_device
+from ..parallel.mesh import device_scope, map_rows
 from ..serving import scope, tracing
 from ..synth.batching import (
     BatchingCore,
@@ -267,14 +276,30 @@ class PiperVoice(BaseModel):
                  tashkeel: Optional[TashkeelEngine] = None,
                  dispatch_policy: Optional[DispatchPolicy] = None,
                  compute_dtype: Optional[str] = None,
-                 decode_quant: Optional[str] = None):
+                 decode_quant: Optional[str] = None, mesh=None):
+        #: a :class:`~..parallel.mesh.Mesh`: every stage's rows split over
+        #: its data axis, the sequence over its seq axis and the decoder's
+        #: channels over its model axis; the voice's own tensors live on
+        #: its first device
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.lead
         self.device = resolve_device(device)
+        if mesh is not None and self.device != mesh.lead:
+            raise OperationError(
+                f"a voice on a mesh lives on the mesh's first device "
+                f"({mesh.lead}), not {self.device}")
         self.config = config
         self.hp = config.hyper
         # int8 weight-only decoder (SONATA_DECODE_QUANT=int8): quantized
         # once, here, in numpy; QConv rescales before each conv
         self.decode_quant = decode_opts.resolve_decode_quant(decode_quant)
         if self.decode_quant == "int8":
+            if mesh is not None:
+                raise OperationError(
+                    "SONATA_DECODE_QUANT=int8 does not compose with a "
+                    "device mesh (the decoder's placements assume float32 "
+                    "weights)")
             params = _quantized_params(params, self.hp)
         # bfloat16 conv stack for the decoder (SONATA_COMPUTE_DTYPE)
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
@@ -287,6 +312,9 @@ class PiperVoice(BaseModel):
         if not isinstance(params, VitsModel):
             params = params_from_numpy(params, self.hp)
         self.model = params.to(self.device).eval()
+        if mesh is not None:  # one copy of the parameters per device
+            for dev in mesh.distinct_devices():
+                mesh.put(self.model, dev)
         self.multi_speaker = config.num_speakers > 1
         self._synth_lock = threading.RLock()
         self._synth_config = config.inference.copy()
@@ -356,6 +384,8 @@ class PiperVoice(BaseModel):
         ``decoder.onnx`` siblings of a streaming voice, ``<stem>.onnx``,
         then a torch checkpoint ``<stem>.pt`` / ``.ckpt`` / ``.pth``.
         """
+        if device is None and kwargs.get("mesh") is not None:
+            device = kwargs["mesh"].lead
         device = resolve_device(device)
         config = ModelConfig.from_path(config_path)
         stem = Path(config_path)
@@ -395,12 +425,13 @@ class PiperVoice(BaseModel):
                device=None, tashkeel: Optional[TashkeelEngine] = None,
                dispatch_policy: Optional[DispatchPolicy] = None,
                compute_dtype: Optional[str] = None,
-               decode_quant: Optional[str] = None,
+               decode_quant: Optional[str] = None, mesh=None,
                **config_overrides) -> "PiperVoice":
         """A randomly-initialized voice (tests, benchmarks, dry runs): the
         reference's ``init_vits`` shapes, drawn from a ``torch.Generator``
         seeded with ``seed``."""
-        device = resolve_device(device)
+        device = resolve_device(mesh.lead if device is None and mesh
+                                is not None else device)
         if config is None:
             d = {
                 "audio": {"sample_rate": 22050, "quality": "medium"},
@@ -416,7 +447,8 @@ class PiperVoice(BaseModel):
                            generator=torch.Generator().manual_seed(seed))
         return cls(config, tree, device=device, seed=seed, tashkeel=tashkeel,
                    dispatch_policy=dispatch_policy,
-                   compute_dtype=compute_dtype, decode_quant=decode_quant)
+                   compute_dtype=compute_dtype, decode_quant=decode_quant,
+                   mesh=mesh)
 
     def replica_for_device(self, device, *,
                            seed_offset: int = 0) -> "PiperVoice":
@@ -425,7 +457,13 @@ class PiperVoice(BaseModel):
         distinct) and warm-up state, with the same precision arms.  The
         parameters move with ``.to(device)``, which shares them when the
         device is the voice's own (an int8 decoder is shared, never
-        quantized again)."""
+        quantized again).  Refused on a mesh voice: a mesh spans its
+        devices as one dispatch, a pool makes each device its own failure
+        domain."""
+        if self.mesh is not None:
+            raise OperationError(
+                "replica pools and device meshes are mutually exclusive "
+                "(a mesh already spans its devices as one dispatch)")
         replica = PiperVoice(
             self.config, self.model, device=device,
             seed=self._seed + seed_offset, tashkeel=self._tashkeel,
@@ -555,6 +593,7 @@ class PiperVoice(BaseModel):
             self._decode_quantize(z, y_lengths, g)
             if self.device.type == "cuda":
                 torch.cuda.current_stream().synchronize()
+        b = z.shape[0]  # the batch as dispatched (a mesh rounds it up)
         self._first_use("batch", (b, t, f))
         with self._shape_lock:
             self.warmed_shapes.add(("batch", (b, t, f)))
@@ -660,7 +699,7 @@ class PiperVoice(BaseModel):
         (:meth:`_iteration_lattice_shapes`).  Ordered smallest-first."""
         if mode == "off":
             return []
-        batches = {1}
+        batches = {self._batch_rows(1)}
         if mode == "full":
             try:
                 kw = self.dispatch_policy.scheduler_kwargs()
@@ -670,7 +709,7 @@ class PiperVoice(BaseModel):
             except Exception:  # policy probe failure must not block boot
                 canonical = 1
             if canonical > 1:
-                batches.add(canonical)
+                batches.add(self._batch_rows(canonical))
         ls = float(self.get_fallback_synthesis_config().length_scale)
         shapes: list = []
         n_fb = len(FRAME_BUCKETS)
@@ -713,6 +752,8 @@ class PiperVoice(BaseModel):
         ladder = [b for b in BATCH_BUCKETS if b <= max_b]
         if mode == "minimal":
             ladder = [1]
+        # the batch as the engines dispatch it (a mesh rounds it up)
+        ladder = sorted({self._mesh_rows(b) for b in ladder})
         widths = [w for w in FRAME_BUCKETS if w <= 1536]
         has_sid = bool(self.multi_speaker)
         return [("wdec", w, b, has_sid) for w in widths for b in ladder]
@@ -737,7 +778,7 @@ class PiperVoice(BaseModel):
             self._stream_decoder.warm(width, b, has_sid).result()
             with self._shape_lock:
                 self.warmed_shapes.add(
-                    ("window", (width, b, has_sid,
+                    ("window", (width, self._mesh_rows(b), has_sid,
                                 self.fused_epilogue != "off")))
             return
         b, t, f = shape
@@ -934,11 +975,28 @@ class PiperVoice(BaseModel):
         return torch.tensor(rows[:batch], dtype=torch.long,
                             device=self.device)
 
+    def _mesh_rows(self, b: int) -> int:
+        """``b`` rounded up to a multiple of the mesh's data axis (so the
+        rows split evenly on any mesh, a non-power-of-two one included);
+        ``b`` itself without a mesh."""
+        if self.mesh is None:
+            return b
+        from ..parallel.mesh import DATA_AXIS
+
+        d = self.mesh.shape[DATA_AXIS]
+        return ((max(b, d) + d - 1) // d) * d
+
+    def _batch_rows(self, n: int) -> int:
+        """The padded batch of ``n`` sentences: its batch bucket, rounded
+        to the mesh's data axis."""
+        return self._mesh_rows(bucket_for(n, BATCH_BUCKETS))
+
     def _pad_batch(self, ids_list: list[list[int]]):
         """Pad a sentence batch to (batch, text) buckets; dummy rows are
-        length 1 and dropped by callers."""
+        length 1 and dropped by callers.  With a mesh the batch rounds up
+        to a multiple of its data axis, as in the reference."""
         n_real = len(ids_list)
-        b = bucket_for(n_real, BATCH_BUCKETS)
+        b = self._batch_rows(n_real)
         t = bucket_for(max(len(i) for i in ids_list), TEXT_BUCKETS)
         padded = ids_list + [[0]] * (b - n_real)
         ids = torch.tensor([pad_to(i, t) for i in padded], dtype=torch.long,
@@ -953,11 +1011,7 @@ class PiperVoice(BaseModel):
         one.  Both are thread-local, so the engines' worker threads enter
         this around every dispatch (a voice on ``cuda:1`` would otherwise
         launch on device 0)."""
-        scope = contextlib.ExitStack()
-        scope.enter_context(torch.inference_mode())
-        if self.device.type == "cuda":
-            scope.enter_context(torch.cuda.device(self.device))
-        return scope
+        return device_scope(self.device)
 
     @staticmethod
     def _row_length_scales(sc, n: int, scales=None) -> list:
@@ -990,7 +1044,7 @@ class PiperVoice(BaseModel):
             dur_noise = torch.zeros((b, t, 2), device=self.device)
         m_p, logs_p, w_ceil, x_mask, g = vits.encode_text(
             self.model, self.hp, ids, lens, dur_noise,
-            noise_w=nw, length_scale=ls, sid=sid)
+            noise_w=nw, length_scale=ls, sid=sid, mesh=self.mesh)
         if frames is None:
             # exact frame budget: one [B] device→host copy, then the bucket
             counts = w_ceil.sum(dim=1).cpu().numpy().astype(np.int64)
@@ -1006,7 +1060,7 @@ class PiperVoice(BaseModel):
             prior = torch.zeros((b, f, c), device=self.device)
         z, _y_mask, y_lengths = vits.acoustics(
             self.model, self.hp, m_p, logs_p, w_ceil, x_mask, prior,
-            noise_scale=ns, max_frames=f, g=g)
+            noise_scale=ns, max_frames=f, g=g, mesh=self.mesh)
         return z, y_lengths, counts, f, g, sid
 
     # -- the frames-per-id estimate (sizes the lattice's frame axis) ----------
@@ -1029,20 +1083,26 @@ class PiperVoice(BaseModel):
                 self._frames_per_id = max(self._frames_per_id * 0.995, ratio)
             self._fpi_observed = True
 
-    def _decode(self, z, g=None):
+    def _decode(self, z, g=None, mesh=None):
         """HiFi-GAN under the voice's precision arms → float32 [B, S]."""
-        return vits.decode_with(self.model, self.hp, z, g=g,
-                                compute_dtype=self.compute_dtype)
+        return vits.decode(self.model, self.hp, z, g=g, mesh=mesh,
+                           compute_dtype=self.compute_dtype)
 
     def _decode_quantize(self, z, y_lengths, g):
         """HiFi-GAN decode + on-device peak-scaled int16 quantization
         (:func:`_quantize_rows`); the peak goes out beside the samples so
         the host restores the amplitudes (the reference's
-        ``_decode_quantize``, in plain torch)."""
-        wav = self._decode(z, g)
-        wav_lengths = y_lengths * self.hp.hop_length
-        wav_i16, peak = _quantize_rows(wav, wav_lengths)
-        return wav_i16, wav_lengths, peak
+        ``_decode_quantize``, in plain torch).  On a mesh each data group
+        decodes and quantizes its own rows."""
+        def run(mesh, z, y_lengths, g):
+            wav = self._decode(z, g, mesh)
+            wav_lengths = y_lengths * self.hp.hop_length
+            wav_i16, peak = _quantize_rows(wav, wav_lengths)
+            return wav_i16, wav_lengths, peak
+
+        if self.mesh is None:
+            return run(None, z, y_lengths, g)
+        return map_rows(self.mesh, run, z, y_lengths, g)
 
     @torch.inference_mode()
     def _infer_batch(self, ids_list: list[list[int]], sc: SynthesisConfig,
@@ -1087,11 +1147,18 @@ class PiperVoice(BaseModel):
         None (a CPU voice with ``SONATA_FUSED_EPILOGUE=off``) the plain
         waveform ``(wav,)`` instead.  The counterpart of the reference's
         ``_decode_windows_fused_fn``."""
-        g = vits.speaker_embedding(self.model, sid)
-        wav = self._decode(windows, g)
-        if lo is None:
-            return (wav,)
-        return decode_opts.fused_epilogue(wav, lo, hi, CROSSFADE_SAMPLES)
+        def run(mesh, windows, sid, lo, hi):
+            g = vits.speaker_embedding(
+                self.model if mesh is None else mesh.put(self.model), sid)
+            wav = self._decode(windows, g, mesh)
+            if lo is None:
+                return (wav,)
+            return decode_opts.fused_epilogue(wav, lo, hi, CROSSFADE_SAMPLES)
+
+        if self.mesh is None:
+            return run(None, windows, sid, lo, hi)
+        # each data group decodes its rows and runs the epilogue on them
+        return map_rows(self.mesh, run, windows, sid, lo, hi)
 
     # ------------------------------------------------------------------
     # dispatch policy and the streaming engines
@@ -1353,6 +1420,7 @@ def _warm_window_dispatch(v: PiperVoice, width: int, b: int,
     voice runs it).  Runs on an engine's worker thread; returns the copy
     and whether this thread met the shape for the first time."""
     fused = v.fused_epilogue != "off"
+    b = v._mesh_rows(b)
     window = torch.zeros((width, v.hp.inter_channels), device=v.device)
     sid = 0 if has_sid else None
     payload = ((window, sid, 0, width * v.hp.hop_length) if fused
@@ -1441,7 +1509,7 @@ class _StreamDecodeCoalescer:
         if key[0] == "warm":
             return _warm_window_dispatch(v, *key[1:])[0], "warm"
         n = len(group)
-        b = self._max_batch if n > 1 else 1
+        b = v._mesh_rows(self._max_batch if n > 1 else 1)
         v._first_use("window", (key[0], b, key[1], key[2]))
         copy = _assemble_window_dispatch(
             v, key, [item.payload for item in group], b)
@@ -1513,6 +1581,7 @@ class _IterationStreamDecoder:
         v = self._voice_ref()
         if v is None:
             raise OperationError("voice was garbage-collected")
+        b = v._mesh_rows(b)
         if key[0] == "warm":
             width = key[1]
             copy, cold = _warm_window_dispatch(v, *key[1:])
@@ -1599,6 +1668,7 @@ class _StreamStageCoalescer:
                 v._encode_and_acoustics([[0] * t] * b, sc, frames=f)
                 if v.device.type == "cuda":
                     torch.cuda.current_stream().synchronize()
+            b = v._batch_rows(b)  # the batch as dispatched
             v._first_use("stage", (b, t, f))
             with v._shape_lock:
                 v.warmed_shapes.add(("stage", (b, t, f)))

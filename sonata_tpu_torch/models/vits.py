@@ -15,10 +15,16 @@ Differences from the reference, on purpose:
   keys: ``duration_predictor_reverse``/``encode_text`` a ``[B, T, 2]``
   draw, ``acoustics`` a ``[B, F, C]`` draw.  :func:`per_row_normal` is the
   port's own sampler, with the reference's per-row rule.
-- No device mesh: the sequence-parallel stages are later work.  The
-  decoder has the reference's precision arms (``compute_dtype``, and int8
-  weights through :class:`~.weights.QConv`); every other stage is
+- The decoder has the reference's precision arms (``compute_dtype``, and
+  int8 weights through :class:`~.weights.QConv`); every other stage is
   float32.
+- A device mesh (``mesh=``, :mod:`..parallel`) is placed by the port
+  itself, where XLA's partitioner places the reference's: rows split over
+  the data axis (:func:`..parallel.mesh.map_rows`), the text encoder and
+  the frame domain over the seq axis (:mod:`.seq_parallel`), and the
+  decoder's channels over the model axis with its collectives written out
+  (:func:`decode_tensor_parallel`).  Every stage returns its rows to the
+  device its inputs came from.
 
 Public functions keep ``[batch, time, channels]`` and ``[B, T, 1]`` masks;
 the flow and the decoder run in torch's ``[B, C, T]`` inside.
@@ -31,6 +37,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import map_rows
 from . import modules as m
 from .config import VitsHyperParams
 
@@ -74,10 +81,18 @@ def sequence_mask(lengths, max_len: int):
     return (idx < lengths[:, None]).to(torch.float32)[..., None]
 
 
-def text_encoder(p, hp: VitsHyperParams, ids, x_mask):
+def text_encoder(p, hp: VitsHyperParams, ids, x_mask, mesh=None):
     x = p["emb"][ids] * math.sqrt(hp.hidden_channels)  # [B, T, H]
-    x = m.transformer(x, x_mask, p["encoder"], n_heads=hp.n_heads,
-                      window=hp.attn_window)
+    seq = 0 if mesh is None else mesh.shape.get("seq", 1)
+    if mesh is not None and seq > 1 and x.shape[1] % seq == 0:
+        # sequence parallelism: ring attention + halo convs over the
+        # mesh's seq axis (long inputs shard along time)
+        x = m.transformer_seq_parallel(x, x_mask, p["encoder"],
+                                       n_heads=hp.n_heads,
+                                       window=hp.attn_window, mesh=mesh)
+    else:
+        x = m.transformer(x, x_mask, p["encoder"], n_heads=hp.n_heads,
+                          window=hp.attn_window)
     stats = m.conv1d(x, p["proj"]) * x_mask
     m_p, logs_p = torch.chunk(stats, 2, dim=-1)
     return x, m_p, logs_p
@@ -137,13 +152,28 @@ def speaker_embedding(p, sid):
 
 
 def encode_text(p, hp: VitsHyperParams, ids, x_lengths, noise, *,
-                noise_w, length_scale, sid=None):
+                noise_w, length_scale, sid=None, mesh=None):
     """ids [B, T] → (m_p, logs_p [B, T, C], w_ceil [B, T], x_mask, g).
 
-    ``noise``: [B, T, 2] standard normal for the duration predictor."""
+    ``noise``: [B, T, 2] standard normal for the duration predictor.  On a
+    ``mesh`` the rows split over the data axis and, when the text bucket
+    divides by the seq axis, the encoder runs as a ring."""
+    if mesh is not None:
+        def group(sub, ids, x_lengths, noise, noise_w, length_scale, sid):
+            return _encode_text(sub.put(p), hp, ids, x_lengths, noise,
+                                noise_w, length_scale, sid, sub)
+
+        return map_rows(mesh, group, ids, x_lengths, noise, noise_w,
+                        length_scale, sid)
+    return _encode_text(p, hp, ids, x_lengths, noise, noise_w, length_scale,
+                        sid, None)
+
+
+def _encode_text(p, hp, ids, x_lengths, noise, noise_w, length_scale, sid,
+                 mesh):
     x_mask = sequence_mask(x_lengths, ids.shape[1])
     g = speaker_embedding(p, sid)
-    x, m_p, logs_p = text_encoder(p["enc_p"], hp, ids, x_mask)
+    x, m_p, logs_p = text_encoder(p["enc_p"], hp, ids, x_mask, mesh=mesh)
     logw = duration_predictor_reverse(p["dp"], hp, x, x_mask, noise,
                                       noise_w, g=g)
     w = torch.exp(logw) * x_mask * _as_rows(length_scale, ids.device)
@@ -169,10 +199,25 @@ def generate_path(w_ceil, x_mask, max_frames: int):
 
 
 def acoustics(p, hp: VitsHyperParams, m_p, logs_p, w_ceil, x_mask, noise, *,
-              noise_scale, max_frames: int, g=None):
+              noise_scale, max_frames: int, g=None, mesh=None):
     """Durations + priors → latent ``z`` [B, F, C] and the frame mask.
 
-    ``noise``: [B, max_frames, C] standard normal for the prior."""
+    ``noise``: [B, max_frames, C] standard normal for the prior.  On a
+    ``mesh`` the rows split over the data axis and the flow runs over the
+    seq axis when :func:`_use_seq_parallel` says so."""
+    if mesh is not None:
+        def group(sub, m_p, logs_p, w_ceil, x_mask, noise, noise_scale, g):
+            return _acoustics(sub.put(p), hp, m_p, logs_p, w_ceil, x_mask,
+                              noise, noise_scale, max_frames, g, sub)
+
+        return map_rows(mesh, group, m_p, logs_p, w_ceil, x_mask, noise,
+                        noise_scale, g)
+    return _acoustics(p, hp, m_p, logs_p, w_ceil, x_mask, noise, noise_scale,
+                      max_frames, g, None)
+
+
+def _acoustics(p, hp, m_p, logs_p, w_ceil, x_mask, noise, noise_scale,
+               max_frames, g, mesh):
     y_lengths = torch.clamp(w_ceil.sum(dim=1), 1, max_frames).to(torch.int32)
     y_mask = sequence_mask(y_lengths, max_frames)  # [B, F, 1]
     path = generate_path(w_ceil, x_mask, max_frames).transpose(1, 2)
@@ -180,13 +225,41 @@ def acoustics(p, hp: VitsHyperParams, m_p, logs_p, w_ceil, x_mask, noise, *,
     logs_p_f = path @ logs_p
     z_p = m_p_f + noise * torch.exp(logs_p_f) * _as_rows(noise_scale,
                                                           m_p.device)
-    z = flow_reverse(p["flow"], hp, z_p, y_mask, g=g)
+    if _use_seq_parallel(mesh, max_frames, hp):
+        from .seq_parallel import flow_reverse_sp
+
+        z = flow_reverse_sp(p["flow"], hp, z_p, y_mask, mesh, g=g)
+    else:
+        z = flow_reverse(p["flow"], hp, z_p, y_mask, g=g)
     return z * y_mask, y_mask, y_lengths
 
 
-def flow_reverse(pf, hp: VitsHyperParams, z, mask, g=None):
+def _use_seq_parallel(mesh, frames: int, hp: VitsHyperParams) -> bool:
+    """Frame-domain ops split over the seq axis when the mesh has one and
+    the per-shard frame count leaves room for every conv halo (the halos
+    are neighbour-only, so each stage's local length must cover its
+    largest receptive-field reach), as the reference decides.
+
+    A model axis above 1 turns it off: tensor parallelism owns the flow
+    and the decoder then (the reference's rule); ring attention in the
+    text domain still rides the seq axis."""
+    if mesh is None:
+        return False
+    if mesh.shape.get("model", 1) > 1:
+        return False
+    seq = mesh.shape.get("seq", 1)
+    if seq <= 1 or frames % seq:
+        return False
+    from .seq_parallel import min_local_frames
+
+    return frames // seq >= min_local_frames(hp)
+
+
+def flow_reverse(pf, hp: VitsHyperParams, z, mask, g=None, conv=None):
     """Residual-coupling flow, reverse.  ``z: [B, F, C]``, ``mask:
-    [B, F, 1]``, ``g: [B, 1, gin]`` or None."""
+    [B, F, 1]``, ``g: [B, 1, gin]`` or None.  ``conv`` replaces the
+    WaveNet's dilated convolutions (:mod:`.seq_parallel` passes a
+    halo-exchange one)."""
     half = hp.inter_channels // 2
     z, mask = z.transpose(1, 2), mask.transpose(1, 2)
     g = None if g is None else g.transpose(1, 2)
@@ -195,7 +268,7 @@ def flow_reverse(pf, hp: VitsHyperParams, z, mask, g=None):
         z0, z1 = z[:, :half], z[:, half:]
         h = m.conv_nct(z0, layer["pre"]) * mask
         h = m.wn_nct(h, mask, layer["wn"], dilation_rate=1,
-                     n_layers=hp.flow_wn_layers, g=g)
+                     n_layers=hp.flow_wn_layers, g=g, conv=conv)
         mean = m.conv_nct(h, layer["post"]) * mask
         z1 = (z1 - mean) * mask  # mean-only coupling, reverse
         z = torch.cat([z0, z1], dim=1)
@@ -208,24 +281,67 @@ def flow_reverse(pf, hp: VitsHyperParams, z, mask, g=None):
 
 class _Cast:
     """A convolution's weight and bias in the compute dtype, cast at the
-    call (an int8 weight is rescaled to float32 first, at its read)."""
+    read (an int8 weight is rescaled to float32 first, at its read).
+    ``src`` is the convolution itself."""
 
-    __slots__ = ("weight", "bias")
+    __slots__ = ("src", "dtype")
 
     def __init__(self, conv, dtype):
-        self.weight = conv.weight.to(dtype)
-        self.bias = None if conv.bias is None else conv.bias.to(dtype)
+        self.src = conv
+        self.dtype = dtype
+
+    @property
+    def weight(self):
+        return self.src.weight.to(self.dtype)
+
+    @property
+    def bias(self):
+        bias = self.src.bias
+        return None if bias is None else bias.to(self.dtype)
 
 
-def decode_with(p, hp: VitsHyperParams, z, g=None, *, compute_dtype=None):
+def decode(p, hp: VitsHyperParams, z, g=None, mesh=None,
+           compute_dtype=None):
+    """Latent ``z`` [B, F, C] → waveform [B, F * hop] float32.
+
+    Without a mesh this is :func:`decode_with`.  On a ``mesh`` the rows
+    split over the data axis; in each data group the frames split over
+    the seq axis (:func:`.seq_parallel.decode_sp`) when
+    :func:`_use_seq_parallel` says so, else the channels over the model
+    axis when it is above 1 (:func:`decode_tensor_parallel`)."""
+    if mesh is None:
+        return decode_with(p, hp, z, g=g, compute_dtype=compute_dtype)
+
+    def group(sub, z, g):
+        if _use_seq_parallel(sub, z.shape[1], hp):
+            from .seq_parallel import decode_sp
+
+            return decode_sp(p, hp, z, sub, g=g, compute_dtype=compute_dtype)
+        if sub.shape.get("model", 1) > 1:
+            return decode_tensor_parallel(p, hp, z, sub, g=g,
+                                          compute_dtype=compute_dtype)
+        return decode_with(sub.put(p), hp, z, g=g,
+                           compute_dtype=compute_dtype)
+
+    return map_rows(mesh, group, z, g)
+
+
+def decode_with(p, hp: VitsHyperParams, z, g=None, *, conv=None, tconv=None,
+                compute_dtype=None):
     """HiFi-GAN generator on ``p["dec"]``: ``z: [B, F, C]``, ``g: [B, 1,
     gin]`` or None → ``[B, F * hop]`` float32.
 
+    ``conv``/``tconv`` replace :func:`.modules.conv_nct` and
+    :func:`.modules.conv_transpose_nct` (the sharded decoders pass
+    halo-exchange or channel-split ones), so the model math exists once;
+    each receives the convolution, or its :class:`_Cast`.
     ``compute_dtype``: ``torch.bfloat16`` casts each conv's weights (kept
     as loaded) and the activations to bfloat16 at the call and returns to
     float32 before ``tanh``, as the reference's ``decode_with`` does, so
     the waveform and the epilogue after it stay float32.  An int8 conv's
     weight is rescaled to float32 and then cast, the reference's order."""
+    conv = conv or m.conv_nct
+    tconv = tconv or m.conv_transpose_nct
     pd = p["dec"]
     if compute_dtype is None:
         def cv(q):
@@ -237,31 +353,139 @@ def decode_with(p, hp: VitsHyperParams, z, g=None, *, compute_dtype=None):
         z = z.to(compute_dtype)
         if g is not None:
             g = g.to(compute_dtype)
-    x = m.conv_nct(z.transpose(1, 2), cv(pd["conv_pre"]))
+    x = conv(z.transpose(1, 2), cv(pd["conv_pre"]))
     if g is not None and "cond" in pd:
         x = x + m.conv_nct(g.transpose(1, 2), cv(pd["cond"]))
     n_kernels = len(hp.resblock_kernel_sizes)
     for i, (r_up, k_up) in enumerate(zip(hp.upsample_rates,
                                          hp.upsample_kernel_sizes)):
         x = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-        x = m.conv_transpose_nct(x, cv(pd["ups"][i]), stride=r_up,
-                                 padding=(k_up - r_up) // 2)
+        x = tconv(x, cv(pd["ups"][i]), stride=r_up,
+                  padding=(k_up - r_up) // 2)
         xs = None
         for j in range(n_kernels):
             y = _resblock1(pd["resblocks"][i * n_kernels + j], x,
-                           hp.resblock_dilation_sizes[j], cv)
+                           hp.resblock_dilation_sizes[j], cv, conv)
             xs = y if xs is None else xs + y
         x = xs / n_kernels
     x = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-    x = m.conv_nct(x, cv(pd["conv_post"]))
+    x = conv(x, cv(pd["conv_post"]))
     return torch.tanh(x.to(torch.float32))[:, 0]  # [B, samples]
 
 
-def _resblock1(block, x, dilations, cv=lambda q: q):
+def _resblock1(block, x, dilations, cv=lambda q: q, conv=None):
+    conv = conv or m.conv_nct
     for c1, c2, d in zip(block["convs1"], block["convs2"], dilations):
         y = torch.nn.functional.leaky_relu(x, m.LRELU_SLOPE)
-        y = m.conv_nct(y, cv(c1), dilation=d)
+        y = conv(y, cv(c1), dilation=d)
         y = torch.nn.functional.leaky_relu(y, m.LRELU_SLOPE)
-        y = m.conv_nct(y, cv(c2))
+        y = conv(y, cv(c2))
         x = x + y
     return x
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel decoder: its collectives, placed by hand
+# ---------------------------------------------------------------------------
+
+class _Weights:
+    """A convolution's (sliced) weight and bias, as the conv primitives
+    read them."""
+
+    __slots__ = ("weight", "bias")
+
+    def __init__(self, weight, bias):
+        self.weight = weight
+        self.bias = bias
+
+
+def decode_tensor_parallel(p, hp: VitsHyperParams, z, mesh, g=None,
+                           compute_dtype=None):
+    """:func:`decode_with` with the decoder's channels split over the
+    mesh's model axis, by the placements of
+    :func:`..parallel.mesh.param_shardings` (Megatron's column/row pairs):
+
+    - column (``conv_pre``, ``ups``, each resblock's ``convs1``): each
+      model position computes its block of output channels from the whole
+      input, and the blocks are gathered on the group's lead device,
+      since the next op (a residual add, a transposed conv) needs them
+      all;
+    - row (each resblock's ``convs2``): each position convolves its block
+      of input channels, and the partial sums are reduced on the lead
+      device in position order before the bias adds;
+    - replicated (``conv_post``, ``cond``, a channel count the axis does
+      not divide): computed once, on the lead device.
+
+    XLA's partitioner places the reference's collectives; these are the
+    port's.  Rows split over the data axis first."""
+    from ..parallel.mesh import MODEL_AXIS, conv_placement
+
+    def group(sub, z, g):
+        devs = sub.axis_devices(MODEL_AXIS)
+        parts = len(devs)
+        pp = sub.put(p)
+        kinds = {}
+        for name, mod in pp["dec"].named_modules():
+            if hasattr(mod, "weight"):
+                kinds[id(mod)] = conv_placement(
+                    ("dec",) + tuple(name.split(".")), mod, parts)
+
+        def split(q):
+            """(weight placement, per-position weights) of conv ``q``, or
+            (None, None) when it is replicated."""
+            src = getattr(q, "src", q)
+            place = kinds.get(id(src))
+            if place is None or place["w"].dim is None:
+                return None, None
+            dtype = getattr(q, "dtype", None)
+            shards = []
+            for k, dev in enumerate(devs):
+                w = sub.shard(src.weight, place["w"].dim, k, parts, dev)
+                # a column conv's bias splits with its output channels; a
+                # row conv's adds after the reduce
+                b = (None if place["b"].dim is None
+                     else sub.shard(src.bias, 0, k, parts, dev))
+                if dtype is not None:
+                    w = w.to(dtype)
+                    b = None if b is None else b.to(dtype)
+                shards.append(_Weights(w, b))
+            return place["w"], shards
+
+        def gather(ys, lead):
+            return torch.cat([y.to(lead, non_blocking=True) for y in ys],
+                             dim=1)
+
+        def conv(x, q, *, dilation: int = 1):
+            place, shards = split(q)
+            if place is None:
+                return m.conv_nct(x, q, dilation=dilation)
+            lead = x.device
+            if place.dim == 0:  # column: [C_out, C_in, K] split on C_out
+                return gather([m.conv_nct(x.to(dev, non_blocking=True), w,
+                                          dilation=dilation)
+                               for w, dev in zip(shards, devs)], lead)
+            # row: [C_out, C_in, K] split on C_in, partial sums reduced
+            step = x.shape[1] // parts
+            y = None
+            for k, (w, dev) in enumerate(zip(shards, devs)):
+                part = m.conv_nct(
+                    x[:, k * step:(k + 1) * step].to(dev, non_blocking=True),
+                    w, dilation=dilation).to(lead, non_blocking=True)
+                y = part if y is None else y + part
+            bias = q.bias
+            return y if bias is None else y + bias[None, :, None]
+
+        def tconv(x, q, *, stride: int, padding: int):
+            place, shards = split(q)
+            if place is None:
+                return m.conv_transpose_nct(x, q, stride=stride,
+                                            padding=padding)
+            # column: ConvTranspose1d [C_in, C_out, K] split on C_out
+            return gather([m.conv_transpose_nct(
+                x.to(dev, non_blocking=True), w, stride=stride,
+                padding=padding) for w, dev in zip(shards, devs)], x.device)
+
+        return decode_with(pp, hp, z, g=g, conv=conv, tconv=tconv,
+                           compute_dtype=compute_dtype)
+
+    return map_rows(mesh, group, z, g)

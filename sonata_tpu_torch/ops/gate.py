@@ -20,6 +20,7 @@ is later performance work (``ROADMAP.md`` §3).
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -75,9 +76,11 @@ def fused_gate(x: torch.Tensor,
                                    out.data_ptr(), b, t, hidden,
                                    x.device.index, stream_of(x))
     check(rc, "fused_gate")
-    fused_gate.launches += 1
+    with _launch_lock:  # the mesh's lanes launch from several threads
+        fused_gate.launches += 1
     return out
 
 
 #: kernel launches since the last reset (the CPU path never counts)
 fused_gate.launches = 0
+_launch_lock = threading.Lock()

@@ -2,7 +2,7 @@
 
 Port of ``sonata_tpu/pysonata.py`` on the PyTorch voices: the same surface,
 and :class:`PiperModel` takes ``device=`` (default: the GPU; ``"cpu"``
-runs on the host) where the JAX module took a device mesh.
+runs on the host) beside the JAX module's ``mesh=``.
 
 Mirrors the reference's Python bindings surface
 (``crates/frontends/python/src/lib.rs``): ``Sonata`` (constructed via
@@ -119,9 +119,9 @@ class PiperModel:
     """A loaded Piper voice (``lib.rs:241-326``)."""
 
     def __init__(self, config_path: Union[str, Path], *,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self._voice = PiperVoice.from_config_path(config_path, seed=seed,
-                                                  device=device)
+                                                  device=device, mesh=mesh)
 
     # -- speakers -------------------------------------------------------------
     @property

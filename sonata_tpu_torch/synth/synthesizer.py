@@ -10,8 +10,10 @@ GPU unless ``device="cpu"`` is given:
   optional :class:`~sonata_tpu_torch.synth.output.AudioOutputConfig`
   (rate, volume, pitch, appended silence, stream normalization).
 - **Lazy** — phonemize once, synthesize one sentence per ``next()``.
-- **Batched** — all sentences through ``Model.speak_batch``, or fanned
-  across a replica pool's per-device schedulers.
+- **Batched** — all sentences through ``Model.speak_batch`` (one padded
+  device batch, whose rows split over the data axis of a voice's mesh,
+  :mod:`sonata_tpu_torch.parallel`), or fanned across a replica pool's
+  per-device schedulers.
 - **Realtime** — a producer thread streams chunks through a queue, with the
   reference's chunk-size growth between sentences (``:351-356``).
 - Every stream marks its first item (``ttfb_s``), which the serving
@@ -70,7 +72,8 @@ class SpeechSynthesizer:
     @classmethod
     def from_config_path(cls, config_path: Union[str, Path], *, device=None,
                          **kwargs) -> "SpeechSynthesizer":
-        """Load a voice (on the GPU unless ``device="cpu"``) and wrap it."""
+        """Load a voice (on the GPU unless ``device="cpu"``, or on a
+        ``mesh=``) and wrap it."""
         from ..models import PiperVoice
 
         return cls(PiperVoice.from_config_path(config_path, device=device,

@@ -266,8 +266,13 @@ def test_error_status_codes_match_jax(pair, case):
 
 
 def test_mesh_devices_flag_is_refused(capsys):
+    """A mesh larger than the visible CUDA devices is refused before
+    anything serves (this host has fewer than 2 cards)."""
+    import torch
+
     from sonata_tpu_torch.frontends import grpc_server
 
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(SystemExit):
-        grpc_server.main(["--mesh-devices", "2"])
-    assert "multi-GPU" in capsys.readouterr().err
+        grpc_server.main(["--mesh-devices", str(n + 1)])
+    assert f"requested a {n + 1}-device mesh" in capsys.readouterr().err

@@ -72,6 +72,14 @@ def test_scan_sees_the_whole_package():
                    "sonata_tpu_torch/frontends/cli.py",
                    "sonata_tpu_torch/frontends/capi_bridge.py",
                    "sonata_tpu_torch/pysonata.py",
+                   "sonata_tpu_torch/parallel/mesh.py",
+                   "sonata_tpu_torch/parallel/ring.py",
+                   "sonata_tpu_torch/parallel/checkpoint.py",
+                   "sonata_tpu_torch/models/seq_parallel.py",
+                   "sonata_tpu_torch/frontends/mesh_server.py",
+                   "sonata_tpu_torch/serving/fleetcache.py",
+                   "sonata_tpu_torch/serving/fleetscope.py",
+                   "sonata_tpu_torch/testing.py",
                    "chip_smoke.py"):
         assert needed in files
     assert _forbidden("jax.numpy") and _forbidden("sonata_tpu.models")
@@ -98,7 +106,11 @@ def test_importing_the_port_leaves_the_jax_package_unloaded():
         "sonata_tpu_torch.frontends.grpc_server, "
         "sonata_tpu_torch.frontends.cli, "
         "sonata_tpu_torch.frontends.capi_bridge, "
-        "sonata_tpu_torch.pysonata, sonata_tpu_torch.serving.replicas\n"
+        "sonata_tpu_torch.pysonata, sonata_tpu_torch.serving.replicas, "
+        "sonata_tpu_torch.parallel, sonata_tpu_torch.models.seq_parallel, "
+        "sonata_tpu_torch.frontends.mesh_server, "
+        "sonata_tpu_torch.serving.fleetcache, "
+        "sonata_tpu_torch.serving.fleetscope, sonata_tpu_torch.testing\n"
         "bad = [m for m in set(sys.modules) - before "
         "if m in ('sonata_tpu', 'jax') "
         "or m.startswith(('sonata_tpu.', 'jax.'))]\n"
@@ -119,13 +131,17 @@ def test_kernel_sources_ship_with_the_package():
         '"data/*.npz"]' in text
     assert '"sonata_tpu_torch.native" = ["src/*.cpp", "include/*.h"]' \
         in text
+    assert '"sonata_tpu_torch.frontends" = ["proto/*.proto"]' in text
+    assert (PORT / "frontends" / "proto" / "sonata_grpc.proto").is_file()
     for rel in ("src/sonata_dsp.cpp", "src/sonata_capi.cpp",
                 "include/libsonata_tpu.h"):
         assert (PORT / "native" / rel).is_file()
     for script, target in (
             ("sonata-tpu-torch", "sonata_tpu_torch.frontends.cli:main"),
             ("sonata-tpu-torch-grpc",
-             "sonata_tpu_torch.frontends.grpc_server:main")):
+             "sonata_tpu_torch.frontends.grpc_server:main"),
+            ("sonata-tpu-torch-mesh",
+             "sonata_tpu_torch.frontends.mesh_server:main")):
         assert f'{script} = "{target}"' in text
 
 
@@ -157,3 +173,31 @@ def test_copy_tool_repoints_names_only():
     assert tool.port_text(text) == (
         "from sonata_tpu_torch.serving import tracing\n"
         "x = 'sonata_tpu_torch.synth'  # sonata_tpu_x stays\n")
+
+
+#: files of the JAX package the port has no counterpart for, each with
+#: its reason
+NOT_PORTED = {
+    "utils/jax_cache.py": "JAX's persistent compilation cache and AOT "
+                          "executable store: the port runs eagerly and "
+                          "compiles nothing ahead of time",
+}
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port is complete: each file of ``sonata_tpu/`` (sources, the
+    proto, the native sources and the bundled data; not build products)
+    has a file at the same path under ``sonata_tpu_torch/``, apart from
+    :data:`NOT_PORTED`."""
+    jax_pkg = REPO / "sonata_tpu"
+    files = sorted(
+        str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*")
+        if p.is_file() and "__pycache__" not in p.parts
+        and p.suffix in (".py", ".proto", ".cpp", ".h", ".npz"))
+    assert "parallel/mesh.py" in files and len(files) > 100
+    missing = [f for f in files
+               if f not in NOT_PORTED and not (PORT / f).is_file()]
+    assert not missing, f"no counterpart in sonata_tpu_torch/: {missing}"
+    for f in NOT_PORTED:
+        assert (jax_pkg / f).is_file(), f"{f} left the JAX package"
+        assert not (PORT / f).exists(), f"{f} is ported now"

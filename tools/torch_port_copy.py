@@ -38,6 +38,8 @@ COPIES = tuple(
                                        "tracing", "warmup")]
     + ["synth/batching.py", "synth/scheduler.py",
        "frontends/__init__.py", "frontends/grpc_messages.py",
+       "frontends/mesh_server.py", "frontends/proto/sonata_grpc.proto",
+       "serving/fleetcache.py", "serving/fleetscope.py", "testing.py",
        "native/src/sonata_dsp.cpp", "native/src/sonata_capi.cpp",
        "native/include/libsonata_tpu.h"])
 
@@ -47,6 +49,10 @@ _SCRUBS = (
      "The serving stack had counters and"),
     (r"\bPR \d+'s router", "The router"),
     (r"\bPR-\d+'s tracing", "Tracing"),
+    (r"\bPR \d+ federated N sonata servers", "N sonata servers federate"),
+    (r"surface PR \d+ built", "surface a node has"),
+    (r"\bPR \d+'s synthesis cache", "The synthesis cache"),
+    (r"\b([Tt]he) PR-\d+\n", r"\1\n"),
     (r"the PR-\d+/\d+ ", "the "),
     (r"the PR-\d+ ", "the "),
     (r"\bPR-\d+ ", ""),
