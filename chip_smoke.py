@@ -142,6 +142,22 @@ exits non-zero; nothing is caught):
               1`` serves a sentence on a voice with that mesh;
               ``--mesh-devices 2`` on a one-card host is refused.  Cross-card transport is not measured: the
               mesh repeats one card.
+14c. train  — the Arabic tagger trained on the card at the bundled tagger's
+              width (hidden 96, filter 256, 2 heads, 2 layers, kernel 3,
+              window 8; ``models/tashkeel_train.py``, the counterpart of
+              ``tools/train_tashkeel.py``): from
+              ``TashkeelModel.random(seed=0)``, 400 Adam steps of batch 32
+              at lr 3e-3 on the tool's batches.  Step 0 on the card against
+              the CPU port (same parameters, same batch): loss within
+              relative 1e-5, every gradient within 1e-5.  The loss at steps
+              0, 50, ..., 399; wall seconds of the 400 steps, host seconds
+              making batches, and each step's time on the card (CUDA events
+              around it); held-out class accuracy at least 0.97; ``save``,
+              reloaded with ``from_path`` on the card, diacritizes the 50
+              held-out sentences identically; DER without case endings and
+              case-ending accuracy on ``tools/tashkeel_gold.txt`` beside the
+              bundled tagger's.  Training launches neither hand kernel (0
+              launches, counted like a path).
 15. kernels — each kernel against its plain PyTorch version on the card, at
               the shapes every path above gave it and at fixed check shapes that reach
               the kernels' edges (ragged and misaligned rows, a strided
@@ -175,6 +191,7 @@ import importlib.util
 import json
 import math
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -253,6 +270,10 @@ MESH_LONG_TEXT = ("This long utterance runs across both halves of the "
                   "joined again at the end, where the listener hears one "
                   "sentence.")
 PROSODY = dict(rate=30, volume=80, pitch=60, appended_silence_ms=200)
+#: phase 14c: the tool's run, and the card's step 0 against the CPU port's
+#: (float32 on both, TF32 off on the card; sums in another order)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 400, 32, 3e-3
+TRAIN_LOSS_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-5
 #: the JAX package's bars for a reduced-precision decoder against float32:
 #: SNR for both arms, the log-spectral distance for the int8 arm
 SNR_DB_MIN, LSD_DB_MAX = 25.0, 1.0
@@ -1688,6 +1709,91 @@ def phase_frontends(ctx, cfg: Path) -> None:
             ("a frontend's WAV differs from the library's", same))
 
 
+def phase_train(ctx) -> None:
+    """Phase 14c: the tagger trained on the card."""
+    import numpy as np
+
+    from sonata_tpu_torch.models import tashkeel_train as tt
+    from sonata_tpu_torch.models.tashkeel import TashkeelModel
+    from sonata_tpu_torch.text.tashkeel import BUNDLED_MODEL
+
+    torch, hp = ctx.torch, tt.BUNDLED_HP
+    model = TashkeelModel.random(hp, seed=0)  # on the card
+    cpu = TashkeelModel.random(hp, seed=0, device="cpu")
+    # step 0 on both: the same parameters, the tool's first batch
+    batch = tt.make_batch(model, random.Random(0), TRAIN_BATCH)
+    loss_card, grads_card = tt.loss_and_grads(model.module, *batch)
+    loss_cpu, grads_cpu = tt.loss_and_grads(cpu.module,
+                                            *(t.cpu() for t in batch))
+    grad_err = {k: float((grads_card[k].cpu() - g).abs().max())
+                for k, g in grads_cpu.items()}
+    loss_rel = abs(float(loss_card) / float(loss_cpu) - 1)
+    step0 = {"loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+             "loss_rel_err": loss_rel, "grads": len(grad_err),
+             "grad_max_abs_err": max(grad_err.values()),
+             "worst_grad": max(grad_err, key=grad_err.get),
+             "grad_max_abs": max(float(g.abs().max())
+                                 for g in grads_cpu.values()),
+             "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                           "grad_atol": TRAIN_GRAD_ATOL}}
+    require(loss_rel <= TRAIN_LOSS_RTOL
+            and step0["grad_max_abs_err"] <= TRAIN_GRAD_ATOL,
+            ("training step 0, card against CPU port", step0))
+    del cpu
+
+    with ctx.counting() as counts:
+        run = tt.train(hp, steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                       model=model, log=None)
+    ctx.paths["train"] = counts
+    losses = run.losses
+    require(len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+            and losses[-1] < losses[0], ("training losses", losses[::50]))
+    accuracy = tt.held_out_accuracy(model)
+
+    held_out = tt.held_out_sentences()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tagger.npz"
+        model.save(path)
+        file_mb = path.stat().st_size / 2 ** 20
+        loaded = TashkeelModel.from_path(path, device="cuda")
+        same = [loaded.diacritize(t) == model.diacritize(t)
+                for t in held_out]
+
+    gold = [ln.strip() for ln in (Path(__file__).resolve().parent / "tools"
+                                  / "tashkeel_gold.txt").read_text(
+        encoding="utf-8").splitlines() if ln.strip()]
+    bundled = TashkeelModel.from_path(BUNDLED_MODEL)
+    scores = {name: tt.gold_report(m.diacritize, gold)
+              for name, m in (("trained", model), ("bundled", bundled))}
+
+    step_ms = run.step_ms
+    emit({"phase": "train", "card": ctx.gpu, "hp": dataclasses.asdict(hp),
+          "params": sum(p.numel() for p in model.module.parameters()),
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+          "step0_card_vs_cpu": step0,
+          "loss": {str(i): losses[i] for i in
+                   list(range(0, TRAIN_STEPS, 50)) + [TRAIN_STEPS - 1]},
+          "wall_s": run.wall_s, "batch_host_s": run.batch_s,
+          "step_clock": run.step_clock,
+          "steps_device_s": sum(step_ms) / 1e3,
+          "ms_per_step": run.wall_s * 1e3 / TRAIN_STEPS,
+          "step_device_ms_median": statistics.median(step_ms),
+          "step_device_ms_max": max(step_ms),
+          "steps_per_s": TRAIN_STEPS / run.wall_s,
+          "held_out_accuracy": accuracy, "gate": tt.ACCURACY_GATE,
+          "round_trip": {"file_mb": file_mb, "sentences": len(same),
+                         "identical": sum(same)},
+          "gold": {"corpus": "tools/tashkeel_gold.txt",
+                   "sentences": len(gold), **scores},
+          "hand_kernels": "training launches neither the gate nor the "
+                          "epilogue", **counts.summary()})
+    require(accuracy >= tt.ACCURACY_GATE, ("held-out accuracy", accuracy))
+    require(all(same), ("reloaded tagger diacritizes otherwise",
+                        same.count(False)))
+    require(counts.launches == {"fused_gate": 0, "fused_epilogue": 0},
+            ("training launched a hand kernel", counts.launches))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2113,7 +2219,8 @@ def main() -> int:
           "tolerance_rel": PARITY_TOL, "runs": prosody})
     require(sum(arms.values()) > 0, "no prosody processing ran")
 
-    # -- 11-14. precision arms, warm-up, the server and the frontends -----------
+    # -- 11-14c. precision arms, warm-up, the server, the frontends, the mesh
+    # and training ----------------------------------------------------------------
     ctx = Ctx(torch, gpu, counting, paths, n_wn, samples, shapes)
     phase_precision(ctx)
     phase_warmup(ctx)
@@ -2123,6 +2230,7 @@ def main() -> int:
         phase_serve_plain(ctx, cfg)
         phase_frontends(ctx, cfg)
         phase_mesh(ctx, cfg)
+    phase_train(ctx)
 
     # -- 15. kernels against their plain versions --------------------------------
     def mesh_shapes(kernel: str) -> dict:

@@ -7,14 +7,17 @@ runs it as a character embedding → relative-position transformer encoder →
 per-character diacritic classifier, built from the VITS text encoder's
 blocks.  Here the same blocks come from :mod:`.modules`, in a
 :class:`TashkeelTagger` module whose parameters are the JAX package's tree
-(``emb``, ``encoder``, ``proj``) carried across by :func:`tagger_from_numpy`.
+(``emb``, ``encoder``, ``proj``) carried across by :func:`tagger_from_numpy`,
+or drawn by :func:`init_tashkeel`.  Its parameters are frozen: only the
+trainer (:mod:`.tashkeel_train`) makes them trainable, for its own run.
 
 The tagger predicts one of 16 diacritic combinations (haraka ± shadda,
 tanwin forms, sukun, or none) to insert after each base character.
 
 File format: ``.npz`` of the flat parameter tree plus a ``__meta__`` JSON
 blob (vocab + hyperparameters), as the JAX package's ``TashkeelModel.save``
-writes it; :meth:`TashkeelModel.from_path` reads it.
+writes it: :meth:`TashkeelModel.save` writes it, and
+:meth:`TashkeelModel.from_path` reads it.
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ from ..core import FailedToLoadResource
 from ..device import resolve_device
 from ..utils.buckets import bucket_for, pad_to
 from . import modules as m
-from .serialization import unflatten_params
+from .serialization import flatten_params, unflatten_params
 from .vits import sequence_mask
-from .weights import ParamTree, fill_tree
+from .weights import ParamTree, _Init, fill_tree, params_to_numpy
 
 # diacritic classes: index 0 = none; combinations a trained model can emit
 DIACRITICS = [
@@ -74,6 +77,36 @@ class TashkeelHyperParams:
     window: int = 16
 
 
+def init_tashkeel(hp: TashkeelHyperParams, n_vocab: int, *,
+                  generator: torch.Generator) -> dict:
+    """A tagger tree (numpy leaves) with the keys, shapes, dtypes and
+    distributions of the reference's ``init_tashkeel``: ``emb`` normal with
+    std 0.02, the encoder as ``modules.init_transformer``, ``proj`` a
+    fan-in uniform 1×1 conv to the 16 classes.  The draws come from
+    ``generator``, not the reference's bits."""
+    r = _Init(generator)
+    return {
+        "emb": r.normal((n_vocab, hp.hidden), 0.02),
+        "encoder": r.transformer(
+            channels=hp.hidden, filter_channels=hp.filter,
+            n_heads=hp.n_heads, n_layers=hp.n_layers, kernel=hp.kernel,
+            window=hp.window),
+        "proj": r.conv(1, hp.hidden, len(DIACRITICS)),
+    }
+
+
+def apply_tashkeel(tagger: "TashkeelTagger", ids, lengths):
+    """``ids [B, T]`` → diacritic class logits ``[B, T, n_classes]``.
+
+    Differentiable: the trainer runs it under autograd."""
+    hp = tagger.hp
+    mask = sequence_mask(lengths, ids.shape[1])
+    x = tagger.emb[ids]
+    x = m.transformer(x, mask, tagger.encoder, n_heads=hp.n_heads,
+                      window=hp.window)
+    return m.conv1d(x, tagger.proj) * mask
+
+
 def strip_diacritics(text: str) -> str:
     return "".join(ch for ch in text if ch not in _DIACRITIC_CHARS)
 
@@ -91,7 +124,7 @@ def tag_characters(base: str, classes, id_to_diacritic) -> str:
 
 class TashkeelTagger(ParamTree):
     """The tagger's parameters (``emb``, ``encoder``, ``proj``) and its
-    forward pass, the JAX package's ``apply_tashkeel``."""
+    forward pass, :func:`apply_tashkeel`."""
 
     def __init__(self, hp: TashkeelHyperParams):
         super().__init__()
@@ -99,11 +132,7 @@ class TashkeelTagger(ParamTree):
 
     def forward(self, ids, lengths):
         """``ids [B, T]`` → diacritic class logits ``[B, T, n_classes]``."""
-        mask = sequence_mask(lengths, ids.shape[1])
-        x = self.emb[ids]
-        x = m.transformer(x, mask, self.encoder, n_heads=self.hp.n_heads,
-                          window=self.hp.window)
-        return m.conv1d(x, self.proj) * mask
+        return apply_tashkeel(self, ids, lengths)
 
 
 def tagger_from_numpy(tree: dict, hp: TashkeelHyperParams) -> TashkeelTagger:
@@ -130,6 +159,17 @@ class TashkeelModel:
         return len(self.vocab) + 1
 
     @classmethod
+    def random(cls, hp: Optional[TashkeelHyperParams] = None, seed: int = 0,
+               *, device=None) -> "TashkeelModel":
+        """A tagger of random weights (:func:`init_tashkeel`, drawn from
+        ``seed``) over the default vocabulary."""
+        hp = hp or TashkeelHyperParams()
+        vocab = list(_DEFAULT_VOCAB)
+        tree = init_tashkeel(hp, len(vocab) + 1,
+                             generator=torch.Generator().manual_seed(seed))
+        return cls(tree, hp, vocab, device=device)
+
+    @classmethod
     def from_path(cls, path: Union[str, Path], *, device=None
                   ) -> "TashkeelModel":
         try:
@@ -142,6 +182,18 @@ class TashkeelModel:
         hp = TashkeelHyperParams(**meta.get("hyper", {}))
         return cls(unflatten_params(flat), hp, meta.get("vocab"),
                    device=device)
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Write the reference's format: the flat tree in its layouts
+        (float32) and ``__meta__``, the UTF-8 JSON of the hyperparameters
+        and the vocabulary, as uint8."""
+        flat = flatten_params(params_to_numpy(self.module))
+        meta = json.dumps({
+            "hyper": dataclasses.asdict(self.hp),
+            "vocab": self.vocab,
+        }).encode("utf-8")
+        np.savez(Path(path), __meta__=np.frombuffer(meta, dtype=np.uint8),
+                 **flat)
 
     @torch.inference_mode()
     def logits(self, base: str) -> torch.Tensor:

@@ -7,6 +7,7 @@ Port of ``sonata_tpu/models/vits.py``, stage for stage:
 - ``acoustics``    — length regulation (``generate_path``), prior sampling,
                      residual-coupling flow (reverse) → latent ``z``.
 - ``decode_with``  — HiFi-GAN generator: ``z`` → waveform.
+- ``infer``        — the three composed: ids → waveform.
 
 Differences from the reference, on purpose:
 
@@ -489,3 +490,29 @@ def decode_tensor_parallel(p, hp: VitsHyperParams, z, mesh, g=None,
                            compute_dtype=compute_dtype)
 
     return map_rows(mesh, group, z, g)
+
+
+# ---------------------------------------------------------------------------
+# full graph
+# ---------------------------------------------------------------------------
+
+def infer(p, hp: VitsHyperParams, ids, x_lengths, dur_noise, prior_noise, *,
+          noise_scale=0.667, length_scale=1.0, noise_w=0.8,
+          max_frames: int = 1024, sid=None):
+    """Single-graph inference: ids → waveform, the reference's single-ONNX
+    contract (``input [B, T]``, ``input_lengths [B]``, the scales, ``sid``)
+    with a static frame budget ``max_frames``.
+
+    The noise is explicit, as in every stochastic stage here:
+    ``dur_noise`` [B, T, 2] for the duration predictor and ``prior_noise``
+    [B, max_frames, C] for the prior, standard normal.
+
+    Returns ``(wav [B, max_frames * hop], wav_lengths [B])`` in samples."""
+    m_p, logs_p, w_ceil, x_mask, g = encode_text(
+        p, hp, ids, x_lengths, dur_noise, noise_w=noise_w,
+        length_scale=length_scale, sid=sid)
+    z, _y_mask, y_lengths = acoustics(
+        p, hp, m_p, logs_p, w_ceil, x_mask, prior_noise,
+        noise_scale=noise_scale, max_frames=max_frames, g=g)
+    wav = decode(p, hp, z, g=g)
+    return wav, y_lengths * hp.hop_length

@@ -19,7 +19,8 @@ its dict.  Layouts:
 
 :func:`random_tree` builds a tree of the same shapes as the reference's
 ``vits.init_vits`` from a ``torch.Generator`` (random voices for tests,
-benchmarks and the GPU smoke run).
+benchmarks and the GPU smoke run); ``tashkeel.init_tashkeel`` draws the
+tagger's encoder through the same :meth:`_Init.transformer`.
 """
 
 from __future__ import annotations
@@ -202,6 +203,25 @@ class _Init:
         return {"w": np.zeros((k, c_in, c_out), np.float32),
                 "b": np.zeros((c_out,), np.float32)}
 
+    def transformer(self, *, channels, filter_channels, n_heads, n_layers,
+                    kernel, window):
+        """The tree of the reference's ``modules.init_transformer``: per
+        layer the attention's 1×1 ``q``/``k``/``v``/``o`` and its
+        relative-position tables, two layer norms and the FFN's convs."""
+        h, head = channels, channels // n_heads
+        return {"layers": [{
+            "attn": {"q": self.conv(1, h, h), "k": self.conv(1, h, h),
+                     "v": self.conv(1, h, h), "o": self.conv(1, h, h),
+                     "emb_rel_k": self.normal((1, 2 * window + 1, head),
+                                              head ** -0.5),
+                     "emb_rel_v": self.normal((1, 2 * window + 1, head),
+                                              head ** -0.5)},
+            "ln1": self.layer_norm(h),
+            "ffn": {"c1": self.conv(kernel, h, filter_channels),
+                    "c2": self.conv(kernel, filter_channels, h)},
+            "ln2": self.layer_norm(h),
+        } for _ in range(n_layers)]}
+
     def dds_conv(self, channels, kernel, n_layers):
         return {"layers": [{
             "dw": {"w": self.normal((kernel, 1, channels),
@@ -219,20 +239,13 @@ def random_tree(hp: VitsHyperParams, *, n_vocab: int, n_speakers: int = 1,
     ``vits.init_vits`` (its draws are not the reference's bits)."""
     r = _Init(generator)
     gin = hp.gin_channels if n_speakers > 1 else 0
-    h, head = hp.hidden_channels, hp.hidden_channels // hp.n_heads
-    w = hp.attn_window
+    h = hp.hidden_channels
     enc_p = {
         "emb": r.normal((n_vocab, h), h ** -0.5),
-        "encoder": {"layers": [{
-            "attn": {"q": r.conv(1, h, h), "k": r.conv(1, h, h),
-                     "v": r.conv(1, h, h), "o": r.conv(1, h, h),
-                     "emb_rel_k": r.normal((1, 2 * w + 1, head), head ** -0.5),
-                     "emb_rel_v": r.normal((1, 2 * w + 1, head), head ** -0.5)},
-            "ln1": r.layer_norm(h),
-            "ffn": {"c1": r.conv(hp.kernel_size, h, hp.filter_channels),
-                    "c2": r.conv(hp.kernel_size, hp.filter_channels, h)},
-            "ln2": r.layer_norm(h),
-        } for _ in range(hp.n_layers)]},
+        "encoder": r.transformer(
+            channels=h, filter_channels=hp.filter_channels,
+            n_heads=hp.n_heads, n_layers=hp.n_layers,
+            kernel=hp.kernel_size, window=hp.attn_window),
         "proj": r.conv(1, h, 2 * hp.inter_channels),
     }
     filt = hp.dp_filter_channels

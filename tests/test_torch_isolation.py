@@ -80,6 +80,7 @@ def test_scan_sees_the_whole_package():
                    "sonata_tpu_torch/serving/fleetcache.py",
                    "sonata_tpu_torch/serving/fleetscope.py",
                    "sonata_tpu_torch/testing.py",
+                   "sonata_tpu_torch/models/tashkeel_train.py",
                    "chip_smoke.py"):
         assert needed in files
     assert _forbidden("jax.numpy") and _forbidden("sonata_tpu.models")
@@ -110,7 +111,8 @@ def test_importing_the_port_leaves_the_jax_package_unloaded():
         "sonata_tpu_torch.parallel, sonata_tpu_torch.models.seq_parallel, "
         "sonata_tpu_torch.frontends.mesh_server, "
         "sonata_tpu_torch.serving.fleetcache, "
-        "sonata_tpu_torch.serving.fleetscope, sonata_tpu_torch.testing\n"
+        "sonata_tpu_torch.serving.fleetscope, sonata_tpu_torch.testing, "
+        "sonata_tpu_torch.models.tashkeel_train\n"
         "bad = [m for m in set(sys.modules) - before "
         "if m in ('sonata_tpu', 'jax') "
         "or m.startswith(('sonata_tpu.', 'jax.'))]\n"
@@ -201,3 +203,107 @@ def test_every_module_of_the_jax_package_has_a_counterpart():
     for f in NOT_PORTED:
         assert (jax_pkg / f).is_file(), f"{f} left the JAX package"
         assert not (PORT / f).exists(), f"{f} is ported now"
+
+
+#: public names of the JAX package the port's counterpart module does not
+#: define, each with its reason or the port's counterpart
+_INITS = "the port draws random trees with weights.random_tree"
+NOT_PORTED_NAMES = {
+    "ops/gate.py::fused_gate_pallas": "the Pallas kernel: csrc/gate.cu, "
+                                      "launched by ops/gate.py::fused_gate",
+    "models/modules.py::init_layer_norm": _INITS,
+    "models/modules.py::init_rel_attention": _INITS,
+    "models/modules.py::init_ffn": _INITS,
+    "models/modules.py::init_transformer": _INITS + " (_Init.transformer)",
+    "models/modules.py::init_wn": _INITS,
+    "models/modules.py::init_dds_conv": _INITS + " (_Init.dds_conv)",
+    "models/vits.py::init_text_encoder": _INITS,
+    "models/vits.py::init_duration_predictor": _INITS,
+    "models/vits.py::init_flow": _INITS,
+    "models/vits.py::init_generator": _INITS,
+    "models/vits.py::init_vits": _INITS,
+    "models/modules.py::conv_transpose1d_subpixel": (
+        "an MXU lowering of the transposed conv, on purpose: the port "
+        "calls cuDNN's conv_transpose1d"),
+    "utils/dispatch_policy.py::should_donate": (
+        "XLA buffer donation; torch has no donation"),
+    "models/tashkeel_cbhg.py::apply_cbhg": (
+        "the CBHG forward is TashkeelCBHGTagger.forward"),
+    "models/modules.py::Params": "a JAX pytree alias; the port's "
+                                 "parameters are nn.Modules",
+    "models/vits.py::Params": "a JAX pytree alias",
+    "models/seq_parallel.py::Params": "a JAX pytree alias",
+    "native/build.py::native_dir": (
+        "the JAX package's in-tree build directory; the port builds under "
+        "build/sonata_tpu_torch (ops/_build.py::BUILD_ROOT)"),
+}
+
+
+def _public_names(path: Path) -> list:
+    """Top-level public functions, classes and assigned names of a module,
+    and each public method of its classes as ``Class.method``."""
+    out = []
+    for node in ast.parse(path.read_text(encoding="utf-8")).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            if node.name.startswith("_"):
+                continue
+            out.append(node.name)
+            if isinstance(node, ast.ClassDef):
+                out += [f"{node.name}.{n.name}" for n in node.body
+                        if isinstance(n, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                        and not n.name.startswith("_")]
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out += [t.id for t in targets if isinstance(t, ast.Name)
+                    and not t.id.startswith("_")]
+    return out
+
+
+def _defined_names(path: Path) -> set:
+    """Every name a module binds at top level (imports included) and each
+    method of its classes as ``Class.method``."""
+    names = set()
+    for node in ast.parse(path.read_text(encoding="utf-8")).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names |= {f"{node.name}.{n.name}" for n in node.body
+                          if isinstance(n, (ast.FunctionDef,
+                                            ast.AsyncFunctionDef))}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0]
+                      for a in node.names}
+    return names
+
+
+def test_every_public_name_has_a_counterpart():
+    """The port is complete by name: every public function, class, method
+    and module-level name of each ``sonata_tpu/`` module exists under the
+    same name in its counterpart under ``sonata_tpu_torch/``, apart from
+    :data:`NOT_PORTED_NAMES` (whose entries must still be missing, and
+    still be in the JAX package)."""
+    jax_pkg = REPO / "sonata_tpu"
+    missing, seen = [], set()
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = str(path.relative_to(jax_pkg))
+        if rel in NOT_PORTED:
+            continue
+        defined = _defined_names(PORT / rel)
+        for name in _public_names(path):
+            key = f"{rel}::{name}"
+            if key in NOT_PORTED_NAMES:
+                seen.add(key)
+                assert name not in defined, f"{key} is ported now"
+            elif name not in defined:
+                missing.append(key)
+    assert not missing, f"no counterpart in sonata_tpu_torch/: {missing}"
+    assert seen == set(NOT_PORTED_NAMES), \
+        f"gone from the JAX package: {set(NOT_PORTED_NAMES) - seen}"

@@ -163,6 +163,35 @@ def test_decode_with_fed_reference_z(setup):
     _close(got, want)
 
 
+def test_infer_composes_the_stages(setup):
+    """``infer`` (ids → waveform) fed the reference's own draws under its
+    key split (``vits.infer``): the durations first, exactly, then the
+    waveform at the audio tolerance of the parity table (atol 2e-4: three
+    stacked stages, each within 1e-4) and the lengths exactly."""
+    s = setup
+    rng = jax.random.PRNGKey(7)  # infer splits it into rng_dur, rng_noise
+    _, _, want_w, _, _ = jv.encode_text(
+        s["params"], HP, s["ids"], s["lens"], s["rng_dur"], noise_w=0.8,
+        length_scale=1.0, sid=s["sid"])
+    sid = _t(s["sid"], torch.long)
+    _, _, got_w, _, _ = tv.encode_text(
+        s["port"], HP, _t(s["ids"], torch.long), _t(s["lens"]),
+        _t(s["dur_noise"]), noise_w=0.8, length_scale=1.0, sid=sid)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+
+    want_wav, want_len = jv.infer(s["params"], HP, s["ids"], s["lens"], rng,
+                                  max_frames=F, sid=s["sid"])
+    prior = np.asarray(jv.per_row_normal(s["rng_noise"],
+                                         (B, F, HP.inter_channels)))
+    got_wav, got_len = tv.infer(s["port"], HP, _t(s["ids"], torch.long),
+                                _t(s["lens"]), _t(s["dur_noise"]),
+                                _t(prior), max_frames=F, sid=sid)
+    assert tuple(got_wav.shape) == (B, F * HP.hop_length)
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    assert np.abs(np.asarray(want_wav)).max() > 1e-3
+    _close(got_wav, want_wav, atol=2e-4)
+
+
 @pytest.mark.parametrize("n_speakers", [1, 4])
 def test_random_tree_has_the_reference_shapes(n_speakers):
     """``weights.random_tree`` (the port's random voices) builds the tree
